@@ -1,7 +1,9 @@
 """Carry engine state across between the JAX package and the port.
 
 ``state_from_numpy`` builds the port's dataclasses (``RaftState``,
-``Messages``, ``HostInbox``, ``StepInfo``) from the JAX pytrees after the
+``Messages``, ``HostInbox``, ``StepInfo``, ``FaultSchedule``, and the
+optional ``TraceState``/``HeatState``/``QuorumContact`` subtrees) from
+the JAX pytrees after the
 caller has turned them into numpy (``jax.tree.map(np.asarray, tree)``);
 ``state_to_numpy`` goes back to nested dicts of numpy arrays with the JAX
 dtypes.  The JAX side is a nested dict, or any object with the same
@@ -18,10 +20,14 @@ import numpy as np
 import torch
 
 from .core.types import (
-    HostInbox, LogState, Messages, RaftState, StepInfo, _Tree,
+    FaultSchedule, HeatState, HostInbox, LogState, Messages, QuorumContact,
+    RaftState, StepInfo, TraceState, _Tree,
 )
 
 _KEY_FIELD = "rng"
+# Fields that hold a nested container, by their container class.
+_SUBTREES = {(RaftState, "log"): LogState, (RaftState, "trace"): TraceState,
+             (RaftState, "heat"): HeatState, (RaftState, "qc"): QuorumContact}
 
 
 def _get(tree, name):
@@ -33,7 +39,9 @@ def _get(tree, name):
 def _infer_cls(tree):
     for cls, probe in ((RaftState, "node_id"), (Messages, "ae_valid"),
                        (StepInfo, "submit_start"), (HostInbox, "snap_done"),
-                       (LogState, "base_term")):
+                       (LogState, "base_term"), (FaultSchedule, "link_up"),
+                       (TraceState, "kind"), (HeatState, "appended"),
+                       (QuorumContact, "heard")):
         if _get(tree, probe) is not None:
             return cls
     raise TypeError("cannot tell which engine container this tree is")
@@ -41,13 +49,14 @@ def _infer_cls(tree):
 
 def state_from_numpy(tree, device, cls=None):
     """JAX pytree of numpy arrays -> the port's dataclass on ``device``.
-    Optional subtrees must be absent (the port has none of them yet)."""
+    A ``None`` optional subtree (trace/heat/qc, cq_*) stays ``None``."""
     cls = cls or _infer_cls(tree)
     kw = {}
     for f in dataclasses.fields(cls):
         v = _get(tree, f.name)
-        if f.name == "log" and cls is RaftState:
-            kw[f.name] = state_from_numpy(v, device, LogState)
+        sub = _SUBTREES.get((cls, f.name))
+        if sub is not None and v is not None:
+            kw[f.name] = state_from_numpy(v, device, sub)
         elif v is None:
             kw[f.name] = None
         else:
@@ -56,10 +65,6 @@ def state_from_numpy(tree, device, cls=None):
                 a = a.astype(np.int64)
             # np.array, not ascontiguousarray: that one turns 0-d into 1-d.
             kw[f.name] = torch.from_numpy(np.array(a, order="C")).to(device)
-    for name in ("trace", "heat", "qc", "cq_stepdown", "cq_veto"):
-        if kw.get(name) is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP queue 1, item 8)")
     return cls(**kw)
 
 

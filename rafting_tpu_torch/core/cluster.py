@@ -4,7 +4,10 @@ The counterpart of ``rafting_tpu/core/cluster.py``.  A whole N-node cluster
 steps in one ``node_step`` call over the explicit leading node axis, and
 message routing is a pure permutation: ``inbox[dst, src] = outbox[src,
 dst]``, a transpose of the first two axes.  Fault injection is a boolean
-connectivity matrix ANDed into every ``*_valid`` mask.
+connectivity matrix ANDed into every ``*_valid`` mask; the nemesis step
+(:func:`cluster_step_nemesis`) adds crash-restarts, stalls and duplicate
+delivery from one tick of a ``FaultSchedule``, all as masks on the
+device.
 """
 
 from __future__ import annotations
@@ -15,15 +18,20 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .step import node_step
+from .step import node_step, raise_debug_violations
 from .types import (
-    I32, LEADER, NIL, EngineConfig, HostInbox, Messages, RaftState, StepInfo,
-    check_supported, conf_learners_of, conf_new_of, conf_voters_of,
-    init_state, resolve_device, stack_states, tree_map,
+    I32, LEADER, NIL, EngineConfig, FaultSchedule, HostInbox, Messages,
+    RaftState, StepInfo, conf_learners_of, conf_new_of, conf_voters_of,
+    crash_restart, init_state, resolve_device, stack_states, tree_map,
 )
 
 _VALID_FIELDS = tuple(f.name for f in dataclasses.fields(Messages)
                       if f.name.endswith("_valid"))
+# Message kind (the field-name prefix: ae/aer/rv/rvr/is/isr/tn) -> every
+# field of that RPC.  Duplicate re-delivery replaces whole RPCs.
+_KIND_FIELDS = {}
+for _f in dataclasses.fields(Messages):
+    _KIND_FIELDS.setdefault(_f.name.split("_", 1)[0], []).append(_f.name)
 
 
 def route(outboxes: Messages, conn: Optional[torch.Tensor] = None
@@ -47,6 +55,65 @@ def cluster_step(cfg: EngineConfig, states: RaftState, inflight: Messages,
     ``states``, ``host`` and the returned ``StepInfo``; ``inflight`` is the
     traffic delivered this tick)."""
     return node_step(cfg, states, route(inflight, conn), host)
+
+
+def _node_bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Broadcast a [N] node mask against a leading-node-axis tensor."""
+    return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
+
+
+def _select_nodes(mask: torch.Tensor, on_true, on_false):
+    """Per-node select over a container: leaf[n] <- on_true[n] where
+    mask[n]; None subtrees stay None."""
+    return tree_map(lambda a, b: torch.where(_node_bcast(mask, a), a, b),
+                    on_true, on_false)
+
+
+def cluster_step_nemesis(cfg: EngineConfig, states: RaftState,
+                         inflight: Messages, host: HostInbox,
+                         prev_info: StepInfo, fault: FaultSchedule
+                         ) -> Tuple[RaftState, Messages, StepInfo]:
+    """One lockstep tick under one tick of a fault schedule (``fault``
+    holds ``link_up`` [N, N], ``crash`` [N], ``stall`` [N], ``dup`` [N,
+    N]).  Mirrors ``rafting_tpu.core.cluster.cluster_step_nemesis``:
+
+    1. crashed nodes reset volatile state (:func:`crash_restart`) before
+       delivery; the select keeps other nodes' PRNG streams bit-exact;
+    2. in-flight messages deliver through ``link_up``; anything addressed
+       to a crashed or stalled node is lost;
+    3. live nodes step; stalled nodes are frozen wholesale (state, clock,
+       timers, StepInfo) and send nothing;
+    4. messages delivered over a ``dup`` link are queued again for next
+       tick, whole RPC, wherever the fresh outbox left that kind empty.
+
+    Every fault is a mask on the device: no host synchronisation."""
+    down = fault.crash | fault.stall                               # [N]
+
+    states = _select_nodes(fault.crash, crash_restart(cfg, states), states)
+
+    delivered = fault.link_up & ~down.unsqueeze(0)                 # [N, N]
+    stepped, outboxes, infos = node_step(cfg, states,
+                                         route(inflight, delivered), host)
+    new_states = _select_nodes(fault.stall, states, stepped)
+    infos = _select_nodes(fault.stall, prev_info, infos)
+    sender_up = ~fault.stall
+    outboxes = outboxes.replace(**{
+        name: getattr(outboxes, name) & _node_bcast(
+            sender_up, getattr(outboxes, name))
+        for name in _VALID_FIELDS})
+
+    dup_lane = (fault.dup & delivered).unsqueeze(-1)               # [N, N, 1]
+    reps = {}
+    for kind, names in _KIND_FIELDS.items():
+        vname = f"{kind}_valid"
+        keep = dup_lane & getattr(inflight, vname) \
+            & ~getattr(outboxes, vname)                            # [N, P, G]
+        for name in names:
+            old = getattr(inflight, name)
+            k = keep if old.ndim == keep.ndim else keep.unsqueeze(-1)
+            reps[name] = torch.where(k, old, getattr(outboxes, name))
+        reps[vname] = getattr(outboxes, vname) | keep
+    return new_states, outboxes.replace(**reps), infos
 
 
 def auto_host_inbox(cfg: EngineConfig, states: RaftState,
@@ -110,7 +177,6 @@ class DeviceCluster:
     def __init__(self, cfg: EngineConfig, seed: int = 0,
                  n_active: int | None = None, n_voters: int | None = None,
                  device=None):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         # Compaction policy for the self-driving inbox (auto_host_inbox).
@@ -161,7 +227,27 @@ class DeviceCluster:
         self.states, self.inflight, info = cluster_step(
             self.cfg, self.states, self.inflight, host, self.conn)
         self.last_info = info
+        if self.cfg.debug_checks:
+            self._debug_check(info)
         return info
+
+    def _debug_check(self, info: StepInfo) -> None:
+        """cfg.debug_checks: raise on any in-step violation code, and on
+        the one cross-node invariant a node cannot see — two leaders of
+        one group at one term.  Reads the tick back to the host."""
+        raise_debug_violations(info, "cluster tick")
+        role = self.states.role.cpu().numpy()
+        term = self.states.term.cpu().numpy()
+        N = role.shape[0]
+        for i in range(N):
+            for j in range(i + 1, N):
+                both = ((role[i] == LEADER) & (role[j] == LEADER)
+                        & (term[i] == term[j]))
+                if both.any():
+                    g = int(np.nonzero(both)[0][0])
+                    raise AssertionError(
+                        f"election safety violated: nodes {i} and {j} both "
+                        f"lead group {g} at term {int(term[i, g])}")
 
     def run(self, n_ticks: int, submit_n=None) -> None:
         for _ in range(n_ticks):

@@ -13,9 +13,10 @@ from typing import Tuple
 
 import torch
 
-from .cluster import auto_host_inbox, cluster_step
+from .cluster import auto_host_inbox, cluster_step, cluster_step_nemesis
 from .types import (
-    EngineConfig, Messages, RaftState, StepInfo, resolve_device,
+    EngineConfig, FaultSchedule, Messages, RaftState, StepInfo,
+    resolve_device, tree_map,
 )
 
 
@@ -70,6 +71,33 @@ def run_cluster_ticks_reads(cfg: EngineConfig, n_ticks: int,
             info.appended_to > 0,
             info.appended_to - info.appended_from + 1, 0).sum()
     return states, inflight, info, served, lease, appended
+
+
+def run_cluster_ticks_nemesis(cfg: EngineConfig, states: RaftState,
+                              inflight: Messages, prev_info: StepInfo,
+                              sched: FaultSchedule, submit_n: torch.Tensor,
+                              read_n=None, device=None
+                              ) -> Tuple[RaftState, Messages, StepInfo]:
+    """Advance the cluster ``sched.n_ticks`` ticks under a fault schedule
+    (per-tick link masks, crash-restarts, stalls, duplicate delivery),
+    with constant offered load ``submit_n`` [N, G] (and optional
+    ``read_n``).  The counterpart of the JAX scan: a tick loop over the
+    schedule's leading axis that makes no host synchronisation.  Runs on
+    the card unless ``device`` says otherwise; state and schedule must
+    already live there.  Returns the final ``(states, inflight, info)``;
+    a stalled node's StepInfo stays frozen, so its host half stalls
+    too."""
+    _on_device(states, device)
+    if sched.link_up.device.type != states.term.device.type:
+        raise ValueError(f"fault schedule lives on {sched.link_up.device}, "
+                         f"the cluster state on {states.term.device}")
+    info = prev_info
+    for t in range(sched.n_ticks):
+        fault = tree_map(lambda a: a[t], sched)
+        host = auto_host_inbox(cfg, states, submit_n, True, info, read_n)
+        states, inflight, info = cluster_step_nemesis(
+            cfg, states, inflight, host, info, fault)
+    return states, inflight, info
 
 
 def committed_entries(states: RaftState) -> torch.Tensor:

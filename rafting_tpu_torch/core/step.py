@@ -1,9 +1,11 @@
 """The batched Multi-Raft step: every group of every node, one tick.
 
-The counterpart of ``rafting_tpu/core/step.py`` ``node_step`` (phases 0-10),
-with the flight-recorder, heat, CheckQuorum and debug blocks left out (they
-are trace-time branches that are off in the configurations the port runs;
-``types.check_supported`` raises for them).
+The counterpart of ``rafting_tpu/core/step.py`` ``node_step`` (phases
+0-10), with its optional blocks: CheckQuorum (phase 6c,
+``cfg.check_quorum``), the flight recorder (``cfg.trace_depth``), heat
+lanes (``cfg.heat``) and the invariant checks (``cfg.debug_checks``).
+Each is a Python branch on the config: with its flag off its subtree is
+``None`` and none of its code runs.
 
 Where the JAX engine ``vmap``s ``node_step`` over the node axis, this step
 is written with the node axis explicit: every ``[G]`` lane is ``[N, G]``,
@@ -36,18 +38,64 @@ from __future__ import annotations
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import prng
 from .types import (
     CANDIDATE, FOLLOWER, I32, LEADER, NIL, PRE_CANDIDATE,
     EngineConfig, HostInbox, LogState, Messages, RaftState, StepInfo,
-    check_supported, conf_learners_of, conf_new_of, conf_pack,
-    conf_voters_of,
+    conf_learners_of, conf_new_of, conf_pack, conf_voters_of,
 )
-from ..ops.quorum import quorum_commit, read_barrier_release
+from ..ops.quorum import contact_quorum, quorum_commit, read_barrier_release
+from ..utils.tracelog import (
+    TR_BECAME_CANDIDATE, TR_BECAME_LEADER, TR_BECAME_PRE_CANDIDATE,
+    TR_COMMIT_ADVANCE, TR_CONF_CHANGE_COMMIT, TR_CONF_CHANGE_ENTER,
+    TR_CRASH_RESTART, TR_LEADER_TRANSFER, TR_READ_RELEASE,
+    TR_SNAPSHOT_INSTALL, TR_STEPPED_DOWN, TR_TERM_BUMP,
+)
 
 Tensor = torch.Tensor
+
+# StepInfo.debug_viol codes (cfg.debug_checks; the check block at the end
+# of node_step).
+DEBUG_CODES = {
+    1: "live log window exceeds ring capacity",
+    2: "commit passed the log end",
+    3: "term regressed",
+    4: "continuing leader's matchIndex moved backwards",
+    5: "candidate ballot is not itself",
+    6: "commit regressed",
+    7: "pipeline head behind ack base",
+    8: "read FIFO length out of range",
+    9: "active config has no voters",
+}
+
+# Flight-recorder kinds in canonical intra-tick emission order.
+_TRACE_KINDS = (
+    TR_TERM_BUMP, TR_STEPPED_DOWN, TR_BECAME_PRE_CANDIDATE,
+    TR_BECAME_CANDIDATE, TR_BECAME_LEADER, TR_SNAPSHOT_INSTALL,
+    TR_COMMIT_ADVANCE, TR_READ_RELEASE, TR_CONF_CHANGE_ENTER,
+    TR_CONF_CHANGE_COMMIT, TR_LEADER_TRANSFER,
+)
+# Every kind but TR_CRASH_RESTART (written by crash_restart), in order.
+assert _TRACE_KINDS == tuple(k for k in range(1, len(_TRACE_KINDS) + 2)
+                             if k != TR_CRASH_RESTART)
+
+
+def raise_debug_violations(info: StepInfo, where: str = "") -> None:
+    """Host-side consumer of ``StepInfo.debug_viol``: raise naming the
+    first violating lane and its invariant (one host read)."""
+    viol = info.debug_viol.detach().cpu().numpy()
+    bad = np.nonzero(viol)
+    if len(bad[0]):
+        first = tuple(int(b[0]) for b in bad)
+        code = int(viol[first])
+        raise AssertionError(
+            f"kernel invariant violated{' in ' + where if where else ''}: "
+            f"lane {first} code {code} "
+            f"({DEBUG_CODES.get(code, 'unknown')}); "
+            f"{len(bad[0])} lane(s) total")
 
 
 # ---------------------------------------------------------------------------
@@ -182,9 +230,8 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
               host: HostInbox) -> Tuple[RaftState, Messages, StepInfo]:
     """Advance every group of every node by one tick (batched over the
     leading node axis of ``state``/``inbox``/``host``)."""
-    check_supported(cfg)
-    G, P, B, L, S = (cfg.n_groups, cfg.n_peers, cfg.batch, cfg.log_slots,
-                     cfg.max_submit)
+    G, P, B, L, S, K = (cfg.n_groups, cfg.n_peers, cfg.batch,
+                        cfg.log_slots, cfg.max_submit, cfg.read_slots)
     s = state
     N = s.term.shape[0]
     dev = s.term.device
@@ -226,7 +273,7 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
     old_term, old_voted, old_last = term, voted, log.last
 
     # ---- 0. membership view C0 (tick-start, the state's cache) ------------
-    w0 = s.conf_word
+    cidx0, w0 = s.conf_idx, s.conf_word
     voters0 = conf_voters_of(w0)
     vnew0 = conf_new_of(w0)
 
@@ -504,6 +551,37 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
     fail_streak = torch.where(isr_r, 0, fail_streak)
     send_next = torch.maximum(send_next, next_idx)
 
+    # ---- 6c. CheckQuorum step-down (cfg.check_quorum) ---------------------
+    # Any valid inbound RPC is contact (term-independent).  The window
+    # anchors at election win and advances each time a due check passes;
+    # a leader without voter-quorum contact for one election timeout steps
+    # down.  Placed before 7b/8/8b, so its pending transfer aborts, its
+    # submissions are refused and 8b drops its pending lease reads.
+    qc = s.qc
+    cq_down = cq_veto = None
+    if cfg.check_quorum:
+        heard_any = _t(inbox.ae_valid | inbox.aer_valid | inbox.rv_valid
+                       | inbox.rvr_valid | inbox.is_valid | inbox.isr_valid
+                       | inbox.tn_valid) & active.unsqueeze(-1) & ~self_hot
+        heard = torch.where(heard_any, now3, qc.heard)
+        since = torch.where(vote_win, nowG, qc.since)
+        cq_due = active & (role == LEADER) & \
+            (nowG - since >= cfg.election_ticks)
+        cq_ok = contact_quorum(voters1, vnew1, me, heard, since)
+        cq_down = cq_due & ~cq_ok
+        since = torch.where(cq_due & cq_ok, nowG, since)
+        role = torch.where(cq_down, FOLLOWER, role)
+        leader_id = torch.where(cq_down, NIL, leader_id)
+        elect_dl = torch.where(cq_down, nowG + rand_to, elect_dl)
+        qc = qc.replace(heard=heard, since=since)
+        # The reads pending at the step-down (8b aborts them).
+        jcol = torch.arange(K, dtype=I32, device=dev)
+        pend_slot = torch.remainder(s.rq_head.unsqueeze(-1) + jcol, K)
+        pend_n = torch.where(jcol < s.rq_len.unsqueeze(-1),
+                             torch.gather(s.rq_n, -1, pend_slot.long()),
+                             0).sum(dim=-1).to(I32)
+        cq_veto = torch.where(cq_down, pend_n, 0)
+
     # ---- 7. timers ---------------------------------------------------------
     voter_self = (((voters1 | vnew1) >> meG) & 1) > 0
     expired = active & (nowG >= elect_dl) & (role != LEADER) & voter_self
@@ -563,7 +641,6 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
     app_to = torch.where(n_acc > 0, log.last, app_to)
 
     # ---- 8b. linearizable read plane: intake + barrier release ------------
-    K = cfg.read_slots
     keep_reads = active & (role == LEADER) & (term == s.term)
     read_abort = (s.rq_len > 0) & ~keep_reads
     rq_head = torch.where(keep_reads, s.rq_head, 0)
@@ -728,8 +805,112 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
     leader_id = torch.where(resigned, NIL, leader_id)
     elect_dl = torch.where(resigned, nowG + rand_to, elect_dl)
 
+    # ---- flight recorder (cfg.trace_depth) --------------------------------
+    # A tick's events land in canonical order: event e's ring slot is n
+    # plus the count of this tick's events that fired before it.  Written
+    # without a scatter: the fired events compact into a dense NE-wide
+    # window ([N, G, NE, NE] one-hot), and ring position d takes window
+    # offset (d - n) mod D when that offset is below the tick's count, so
+    # masked lanes write nowhere.  trace_depth >= NE + 1 keeps a tick's
+    # slots distinct.
+    trace = s.trace
+    if cfg.trace_depth:
+        D = cfg.trace_depth
+        NE = len(_TRACE_KINDS)
+        ev_masks = torch.stack([
+            term != s.term,
+            (s.role == LEADER) & (role != LEADER),
+            start_pre,
+            became_cand,
+            vote_win,
+            sd,
+            commit > s.commit,
+            n_rel > 0,
+            (w2 != w0) | (cidx2 != cidx0),
+            (cidx2 > 0) & (s.commit < cidx2) & (commit >= cidx2),
+            xfer_fire,
+        ], dim=-1) & active.unsqueeze(-1)                      # [N, G, NE]
+        # _TRACE_KINDS built on the device (a host tensor would be a
+        # synchronising copy every tick).
+        e = torch.arange(NE, dtype=I32, device=dev)
+        ev_kinds = e + 1 + (e >= TR_CRASH_RESTART - 1).to(I32)
+        ev_aux = torch.stack([
+            s.term, leader_id, zG,
+            # Candidacy cause: 0 PreVote majority / 1 timer / 2 TimeoutNow.
+            timer_cand.to(I32) + tn_cand.to(I32),
+            noop_idx, host.snap_idx,
+            commit, n_served,
+            w2, cidx2, xfer_to,
+        ], dim=-1)
+        ev_i32 = ev_masks.to(I32)
+        prior = torch.cumsum(ev_i32, dim=-1).to(I32) - ev_i32
+        n_new = ev_i32.sum(dim=-1).to(I32)                     # [N, G]
+        off_hit = (prior.unsqueeze(-1) ==
+                   torch.arange(NE, dtype=I32, device=dev)) \
+            & ev_masks.unsqueeze(-1)                           # [N, G, NE, NE]
+
+        def win(vals):                                         # -> [N, G, NE]
+            return torch.where(off_hit, vals.unsqueeze(-1), 0) \
+                .sum(dim=-2).to(I32)
+
+        rel = torch.remainder(
+            torch.arange(D, dtype=I32, device=dev)
+            - torch.remainder(trace.n, D).unsqueeze(-1), D)    # [N, G, D]
+        write = rel < n_new.unsqueeze(-1)
+        rel_idx = torch.clamp(rel, max=NE - 1).long()
+
+        def put(ring, vals):
+            return torch.where(write, torch.gather(win(vals), -1, rel_idx),
+                               ring)
+
+        trace = trace.replace(
+            tick=torch.where(write, now3, trace.tick),
+            kind=put(trace.kind, ev_kinds.expand(N, G, NE)),
+            term=torch.where(write, term.unsqueeze(-1), trace.term),
+            aux=put(trace.aux, ev_aux),
+            n=trace.n + n_new,
+        )
+
+    # ---- heat lanes (cfg.heat) --------------------------------------------
+    # Cumulative per-group counters: entries appended, RPCs emitted (all
+    # seven kinds, summed over the destination axis), commit advance,
+    # reads served.
+    heat = s.heat
+    if cfg.heat:
+        sent_n = (out_ae_valid.to(I32) + out_aer_valid.to(I32)
+                  + out_rv_valid.to(I32) + out_rvr_valid.to(I32)
+                  + out_is_valid.to(I32) + out_isr_valid.to(I32)
+                  + out_tn_valid.to(I32)).sum(dim=1).to(I32)
+        appended_n = torch.where(app_to > 0, app_to - app_from + 1, 0)
+        heat = heat.replace(
+            appended=heat.appended + appended_n,
+            sent=heat.sent + sent_n,
+            commits=heat.commits + (commit - s.commit),
+            reads=heat.reads + n_served,
+        )
+
     dirty = (term != old_term) | (voted != old_voted) | \
         (log.last != old_last) | (app_to > 0)
+
+    # ---- invariant checks (cfg.debug_checks) ------------------------------
+    # The first violated invariant per lane, as a DEBUG_CODES code.
+    debug_viol = zG
+    if cfg.debug_checks:
+        def flag(viol, cond, code):
+            return torch.where(active & cond & (viol == 0), code, viol)
+        debug_viol = flag(debug_viol, log.last - log.base > L, 1)
+        debug_viol = flag(debug_viol,
+                          commit > torch.maximum(log.last, log.base), 2)
+        debug_viol = flag(debug_viol, term < s.term, 3)
+        debug_viol = flag(
+            debug_viol,
+            (s.role == LEADER) & (role == LEADER)
+            & (match_idx < s.match_idx).any(dim=-1), 4)
+        debug_viol = flag(debug_viol, (role == CANDIDATE) & (voted != meG), 5)
+        debug_viol = flag(debug_viol, commit < s.commit, 6)
+        debug_viol = flag(debug_viol, (send_next < next_idx).any(dim=-1), 7)
+        debug_viol = flag(debug_viol, (rq_len < 0) | (rq_len > K), 8)
+        debug_viol = flag(debug_viol, voters2 == 0, 9)
 
     new_state = RaftState(
         node_id=s.node_id, now=now, rng=rng, active=active,
@@ -747,6 +928,7 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
         read_evid=read_evid,
         rq_idx=rq_idx, rq_stamp=rq_stamp, rq_n=rq_n,
         rq_head=rq_head, rq_len=rq_len,
+        trace=trace, heat=heat, qc=qc,
     )
     outbox = Messages(
         ae_valid=out_ae_valid, ae_term=out_ae_term,
@@ -784,6 +966,7 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
         conf_app_word=conf_app_word,
         conf_word=w2, conf_idx=cidx2, conf_pending=cidx2 > commit,
         xfer_fired=xfer_fire, xfer_abort=xfer_abort,
-        debug_viol=zG,
+        debug_viol=debug_viol,
+        cq_stepdown=cq_down, cq_veto=cq_veto,
     )
     return new_state, outbox, info

@@ -23,11 +23,12 @@ Index conventions
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
 from . import prng
+from ..utils.tracelog import TR_CRASH_RESTART
 
 # Role lattice.
 FOLLOWER = 0
@@ -95,9 +96,10 @@ class EngineConfig:
     (names, defaults and asserts), so one config describes both engines.
     ``use_pallas`` is kept for parity: in the port the CUDA quorum kernel
     runs on every CUDA tick whatever its value, and the plain version on
-    every CPU tick.  ``trace_depth``, ``heat``, ``check_quorum`` and
-    ``debug_checks`` are accepted here but not yet ported: the entry
-    points raise ``NotImplementedError`` for them (:func:`check_supported`).
+    every CPU tick.  ``trace_depth``, ``heat`` and ``check_quorum`` each
+    add an optional subtree to the state (``None`` when off, so a build
+    with them off runs exactly the default step); ``debug_checks`` fills
+    ``StepInfo.debug_viol``.
     """
 
     n_groups: int                 # G — groups resident on this node
@@ -113,14 +115,14 @@ class EngineConfig:
     inflight_limit: int = 4       # W — max un-acked AppendEntries batches per (group, peer)
     avail_crit: int = 3           # peer unhealthy after this many consecutive RPC timeouts
     recovery_ticks: int = 6       # peer stays unhealthy this long after its last failure
-    debug_checks: bool = False    # in-kernel invariant checks (not yet ported)
+    debug_checks: bool = False    # in-step invariant checks (StepInfo.debug_viol)
     read_slots: int = 4           # K — pending ReadIndex batches per group
     read_lease: bool = True       # lease fast path (receipt-anchored evidence)
     read_fresh_ticks: int = 3     # lease evidence freshness bound
-    trace_depth: int = 0          # D — flight-recorder depth (not yet ported)
+    trace_depth: int = 0          # D — flight-recorder depth (0 = off)
     quorum_fixed: bool = False    # BENCH-ONLY fixed-majority commit baseline
-    heat: bool = False            # per-group heat lanes (not yet ported)
-    check_quorum: bool = False    # CheckQuorum step-down (not yet ported)
+    heat: bool = False            # per-group heat lanes
+    check_quorum: bool = False    # CheckQuorum step-down (phase 6c)
 
     def __post_init__(self):
         assert self.n_peers >= 1
@@ -145,19 +147,6 @@ class EngineConfig:
         return self.n_peers // 2 + 1
 
 
-def check_supported(cfg: EngineConfig) -> None:
-    """Raise for the optional device subtrees the port does not have yet,
-    rather than silently building a state without their lanes."""
-    off = [name for name, on in (("trace_depth", cfg.trace_depth),
-                                 ("heat", cfg.heat),
-                                 ("check_quorum", cfg.check_quorum),
-                                 ("debug_checks", cfg.debug_checks)) if on]
-    if off:
-        raise NotImplementedError(
-            f"{', '.join(off)} not ported yet (ROADMAP queue 1, item 8: "
-            "optional device subtrees)")
-
-
 class _Tree:
     """Dataclass-of-tensors helpers shared by every state container."""
 
@@ -179,6 +168,85 @@ class LogState(_Tree):
     base_term: torch.Tensor  # [G] int32 — term of the entry at `base`
     base_conf: torch.Tensor  # [G] int32 — packed config as of index `base`
     last: torch.Tensor       # [G] int32 — last appended index (0 = empty)
+
+
+@dataclasses.dataclass
+class TraceState(_Tree):
+    """Per-group flight-recorder rings (``cfg.trace_depth`` slots per
+    group): slot ``i % D`` holds event ``i``, ``n`` counts events ever
+    written.  Observability state: no step phase reads it back."""
+
+    tick: torch.Tensor   # [G, D] int32 — event tick stamp (node's own clock)
+    kind: torch.Tensor   # [G, D] int32 — TR_* event kind
+    term: torch.Tensor   # [G, D] int32 — group term at emission
+    aux: torch.Tensor    # [G, D] int32 — per-kind payload
+    n: torch.Tensor      # [G] int32 — events ever written (ring head = n % D)
+
+    @classmethod
+    def empty(cls, n_groups: int, depth: int, device=None) -> "TraceState":
+        dev = resolve_device(device)
+        z = lambda *sh: _z(sh, dev)
+        return cls(tick=z(n_groups, depth), kind=z(n_groups, depth),
+                   term=z(n_groups, depth), aux=z(n_groups, depth),
+                   n=z(n_groups))
+
+
+@dataclasses.dataclass
+class HeatState(_Tree):
+    """Per-group cumulative activity counters (``cfg.heat``).  They
+    survive ``crash_restart``: activity history is not protocol state."""
+
+    appended: torch.Tensor   # [G] int32 — entries appended to the log, ever
+    sent: torch.Tensor       # [G] int32 — RPCs emitted (all 7 kinds), ever
+    commits: torch.Tensor    # [G] int32 — commit-index advance, ever
+    reads: torch.Tensor      # [G] int32 — linearizable reads served, ever
+
+    @classmethod
+    def empty(cls, n_groups: int, device=None) -> "HeatState":
+        # One buffer per lane: an in-place update of one lane must never
+        # show through another.
+        dev = resolve_device(device)
+        z = lambda: _z((n_groups,), dev)
+        return cls(appended=z(), sent=z(), commits=z(), reads=z())
+
+
+@dataclasses.dataclass
+class QuorumContact(_Tree):
+    """Per-group quorum-contact lanes (``cfg.check_quorum``), read back
+    only by phase 6c and reset by ``crash_restart``."""
+
+    heard: torch.Tensor   # [G, P] int32 — own-clock tick of last contact (0 never)
+    since: torch.Tensor   # [G] int32 — contact-window anchor (0 = not leading yet)
+
+    @classmethod
+    def empty(cls, n_groups: int, n_peers: int, device=None
+              ) -> "QuorumContact":
+        dev = resolve_device(device)
+        return cls(heard=_z((n_groups, n_peers), dev),
+                   since=_z((n_groups,), dev))
+
+
+def trace_append(tr: TraceState, mask: torch.Tensor, kind: int,
+                 tick, term, aux) -> TraceState:
+    """Masked append of one event kind across all groups (any leading
+    axes: ``mask`` is [..., G]; ``tick``/``term``/``aux`` broadcast to
+    it).  Lanes where ``mask`` is False write nowhere and keep their
+    count.  Compare-and-select, not scatter, as in the JAX engine."""
+    D = tr.tick.shape[-1]
+    dev = tr.tick.device
+    slot = torch.where(mask, torch.remainder(tr.n, D),
+                       torch.full_like(tr.n, D))
+    hit = slot.unsqueeze(-1) == torch.arange(D, dtype=I32, device=dev)
+
+    def put(ring, v):
+        # A Python int goes into the select as a scalar: no host copy.
+        if isinstance(v, torch.Tensor):
+            v = v.to(ring.dtype).expand(mask.shape).unsqueeze(-1)
+        return torch.where(hit, v, ring)
+
+    return tr.replace(tick=put(tr.tick, tick), kind=put(tr.kind, kind),
+                      term=put(tr.term, term), aux=put(tr.aux, aux),
+                      n=tr.n + mask.to(I32))
 
 
 @dataclasses.dataclass
@@ -233,32 +301,81 @@ class RaftState(_Tree):
     rq_head: torch.Tensor        # [G] int32
     rq_len: torch.Tensor         # [G] int32
 
-    # Optional subtrees of the JAX state; always None in the port until
-    # ROADMAP item 8 lands (check_supported raises for their flags).
-    trace: Any = None
-    heat: Any = None
-    qc: Any = None
+    # Optional subtrees, None when their flag is off (the step then runs
+    # none of their code).
+    trace: Optional[TraceState] = None   # cfg.trace_depth
+    heat: Optional[HeatState] = None     # cfg.heat
+    qc: Optional[QuorumContact] = None   # cfg.check_quorum
+
+
+@dataclasses.dataclass
+class FaultSchedule(_Tree):
+    """A precomputed fault plan for a chaos run, indexed by tick along the
+    leading axis (the semantics of ``rafting_tpu.core.types.FaultSchedule``):
+    ``link_up[t, s, d]`` False drops messages in flight s->d; ``crash[t,
+    n]`` crash-restarts node n before delivery; ``stall[t, n]`` freezes
+    node n for the tick; ``dup[t, s, d]`` re-delivers this tick's s->d
+    traffic next tick."""
+
+    link_up: torch.Tensor  # [T, N, N] bool — conn[s, d] per tick (False = cut)
+    crash: torch.Tensor    # [T, N] bool — crash-restart node n at tick t
+    stall: torch.Tensor    # [T, N] bool — freeze node n for tick t
+    dup: torch.Tensor      # [T, N, N] bool — duplicate deliveries on link s->d
+
+    @property
+    def n_ticks(self) -> int:
+        return self.link_up.shape[0]
+
+    @classmethod
+    def healthy(cls, n_peers: int, n_ticks: int, device=None
+                ) -> "FaultSchedule":
+        """The no-fault schedule: all links up, nothing crashes."""
+        dev = resolve_device(device)
+        return cls(
+            link_up=torch.ones((n_ticks, n_peers, n_peers), dtype=BOOL,
+                               device=dev),
+            crash=_z((n_ticks, n_peers), dev, BOOL),
+            stall=_z((n_ticks, n_peers), dev, BOOL),
+            dup=_z((n_ticks, n_peers, n_peers), dev, BOOL),
+        )
 
 
 def crash_restart(cfg: EngineConfig, s: RaftState) -> RaftState:
-    """Volatile-state reset for a crash-restart of ONE node: durable state
-    (term, ballot, log, config cache) survives, everything else returns to
-    boot values, and the election timer re-arms from a fresh split of the
-    node's key.  Mirrors ``rafting_tpu.core.types.crash_restart``."""
-    check_supported(cfg)
+    """Volatile-state reset for a crash-restart: durable state (term,
+    ballot, log, config cache) survives, everything else returns to boot
+    values, and the election timer re-arms from a fresh split of the
+    node's key.  Mirrors ``rafting_tpu.core.types.crash_restart`` for one
+    node, and batches over a leading node axis (``s.now`` [N]) as the
+    JAX ``vmap`` does: each node's result is the one-node result.
+
+    The flight recorder survives and records the restart, stamped with
+    the pre-step clock; heat survives; quorum-contact lanes reset."""
     G, P, K = cfg.n_groups, cfg.n_peers, cfg.read_slots
+    lead = s.term.shape[:-1]
     dev = s.term.device
     keys = prng.split(s.rng)
     rng, k = keys[..., 0, :], keys[..., 1, :]
-    deadline = s.now + prng.randint(k, G, cfg.election_ticks,
-                                    2 * cfg.election_ticks)
-    z = lambda *sh: _z(sh, dev)
-    f = lambda *sh: _z(sh, dev, BOOL)
-    boot_next = (s.log.last[:, None] + 1).expand(G, P).clone()
+    now = s.now.unsqueeze(-1)                         # [..., 1]
+    deadline = now + prng.randint(k, G, cfg.election_ticks,
+                                  2 * cfg.election_ticks)
+    z = lambda *sh: _z(lead + sh, dev)
+    f = lambda *sh: _z(lead + sh, dev, BOOL)
+    nil = lambda: torch.full(lead + (G,), NIL, dtype=I32, device=dev)
+    boot_next = (s.log.last.unsqueeze(-1) + 1).expand(lead + (G, P)).clone()
+    trace = s.trace
+    if trace is not None:
+        trace = trace_append(trace, s.active, TR_CRASH_RESTART, now,
+                             s.term, s.log.last)
+    qc = s.qc
+    if qc is not None:
+        qc = qc.replace(heard=torch.zeros_like(qc.heard),
+                        since=torch.zeros_like(qc.since))
     return s.replace(
+        trace=trace,
+        qc=qc,
         rng=rng,
         role=z(G),
-        leader_id=torch.full((G,), NIL, dtype=I32, device=dev),
+        leader_id=nil(),
         commit=s.log.base.clone(),
         applied=z(G),
         own_from=z(G),
@@ -279,7 +396,7 @@ def crash_restart(cfg: EngineConfig, s: RaftState) -> RaftState:
         read_evid=z(G, P),
         rq_idx=z(G, K), rq_stamp=z(G, K), rq_n=z(G, K),
         rq_head=z(G), rq_len=z(G),
-        xfer_to=torch.full((G,), NIL, dtype=I32, device=dev),
+        xfer_to=nil(),
         xfer_dl=z(G),
     )
 
@@ -427,9 +544,13 @@ class StepInfo(_Tree):
     conf_pending: torch.Tensor   # [G] bool
     xfer_fired: torch.Tensor     # [G] bool
     xfer_abort: torch.Tensor     # [G] bool
-    debug_viol: torch.Tensor     # [G] int32 (zeros: debug checks not ported)
-    cq_stepdown: Any = None      # CheckQuorum outputs: None until item 8
-    cq_veto: Any = None
+    debug_viol: torch.Tensor     # [G] int32 — invariant violation code
+                                 #   (0 = ok; step.DEBUG_CODES), zeros
+                                 #   unless cfg.debug_checks
+    # CheckQuorum outputs, None unless cfg.check_quorum: [G] bool
+    # step-down this tick, and [G] int32 pending reads it vetoed.
+    cq_stepdown: Optional[torch.Tensor] = None
+    cq_veto: Optional[torch.Tensor] = None
 
     @classmethod
     def empty(cls, cfg: EngineConfig, device=None,
@@ -443,6 +564,9 @@ class StepInfo(_Tree):
             out[f.name] = _z(shape, dev, BOOL if f.name in _INFO_BOOL
                              else I32)
         out["leader"] = torch.full(shape, NIL, dtype=I32, device=dev)
+        if cfg.check_quorum:
+            out["cq_stepdown"] = _z(shape, dev, BOOL)
+            out["cq_veto"] = _z(shape, dev)
         return cls(**out)
 
 
@@ -459,8 +583,8 @@ def init_state(cfg: EngineConfig, node_id: int, seed: int = 0,
                device=None) -> RaftState:
     """Fresh boot state of one node: every group a follower at term 0 with
     an empty log, election deadlines staggered by the node's seeded key
-    (the same draw as the JAX engine, bit for bit)."""
-    check_supported(cfg)
+    (the same draw as the JAX engine, bit for bit).  The optional
+    subtrees are built per flag, None when off."""
     dev = resolve_device(device)
     G, P, K, L = cfg.n_groups, cfg.n_peers, cfg.read_slots, cfg.log_slots
     key = prng.prng_key(seed * 7919 + node_id, device=dev)
@@ -496,6 +620,10 @@ def init_state(cfg: EngineConfig, node_id: int, seed: int = 0,
         read_evid=z(G, P),
         rq_idx=z(G, K), rq_stamp=z(G, K), rq_n=z(G, K),
         rq_head=z(G), rq_len=z(G),
+        trace=(TraceState.empty(G, cfg.trace_depth, dev)
+               if cfg.trace_depth else None),
+        heat=HeatState.empty(G, dev) if cfg.heat else None,
+        qc=QuorumContact.empty(G, P, dev) if cfg.check_quorum else None,
     )
 
 

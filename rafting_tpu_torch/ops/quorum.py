@@ -188,3 +188,23 @@ def read_barrier_release(voters, voters_new, me, read_evid, rq_stamp,
     rel = pending & (torch.cumsum((~ok).to(I32), dim=-1) == 0)
     return (rel.sum(dim=-1).to(I32),
             (rel.to(I32) * n).sum(dim=-1).to(I32))
+
+
+def contact_quorum(voters, voters_new, me, heard, since):
+    """CheckQuorum contact test for every group at once: has a majority of
+    the voters — and, while joint, of ``voters_new`` too — been heard from
+    at or after the window anchor ``since``?  Self always counts; learner
+    contact never does.
+
+    Shapes: ``heard`` [..., G, P], ``since``/``voters`` [..., G]; ``me``
+    holds the leading axes only (a scalar for one node, [N] for the
+    batched step).  Returns [..., G] bool."""
+    P = heard.shape[-1]
+    self_hot = torch.arange(P, dtype=I32, device=heard.device) == \
+        me.reshape(me.shape + (1, 1))                          # [..., 1, P]
+    flags = (heard >= since.unsqueeze(-1)) | self_hot          # [..., G, P]
+    vb = _bits(voters, P)
+    nb = _bits(voters_new, P)
+    ok_v = (flags & vb).sum(dim=-1) >= vb.sum(dim=-1) // 2 + 1
+    ok_n = (flags & nb).sum(dim=-1) >= nb.sum(dim=-1) // 2 + 1
+    return ok_v & ((voters_new == 0) | ok_n)

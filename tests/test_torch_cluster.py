@@ -52,7 +52,10 @@ def test_dataclass_fields_match_jax():
     pairs = [(jty.EngineConfig, tty.EngineConfig),
              (jty.RaftState, tty.RaftState), (jty.LogState, tty.LogState),
              (jty.Messages, tty.Messages), (jty.HostInbox, tty.HostInbox),
-             (jty.StepInfo, tty.StepInfo)]
+             (jty.StepInfo, tty.StepInfo), (jty.TraceState, tty.TraceState),
+             (jty.HeatState, tty.HeatState),
+             (jty.QuorumContact, tty.QuorumContact),
+             (jty.FaultSchedule, tty.FaultSchedule)]
     for j, t in pairs:
         assert {f.name for f in dataclasses.fields(j)} == \
             {f.name for f in dataclasses.fields(t)}, t.__name__
@@ -177,12 +180,22 @@ def test_port_runs_without_jax():
                     raise ImportError("blocked: " + name)
         sys.meta_path.insert(0, Block())
         import rafting_tpu_torch as rt
+        from rafting_tpu_torch.testkit import invariants, nemesis
+        from rafting_tpu_torch.utils import tracelog
         c = rt.DeviceCluster(rt.EngineConfig(n_groups=16, n_peers=3),
                              seed=1, device="cpu")
         for _ in range(30):
             c.tick(submit_n=1)
         role = c.snapshot()["role"]
         assert ((role == rt.LEADER).sum(axis=0) == 1).all(), role
+        cfg = rt.EngineConfig(n_groups=8, n_peers=3, trace_depth=12,
+                              heat=True, check_quorum=True,
+                              debug_checks=True)
+        _, chk, snap = nemesis.run_nemesis_audited(
+            cfg, nemesis.chaos_mix(3, 30, seed=1, device="cpu"), seed=1,
+            audit_every=15, settle_ticks=30, device="cpu",
+            checker=invariants.ClusterChecker(cfg))
+        assert chk.committed_terms and tracelog.TRACE_EVENTS
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "flax", "rafting_tpu")]
         assert not bad, bad
@@ -212,8 +225,23 @@ def test_entry_points_refuse_to_drift_to_cpu(monkeypatch):
                                   dict(check_quorum=True),
                                   dict(debug_checks=True)])
 def test_unported_subtrees_raise(flag):
-    cfg = EngineConfig(n_groups=4, n_peers=3, **flag)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tty.init_state(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DeviceCluster(cfg, device="cpu")
+    """Each optional flag builds its subtree (and its StepInfo lanes) with
+    the JAX engine's shapes, dtypes and values, every lane in its own
+    buffer, and a cluster with it steps."""
+    kw = dict(KW, **flag)
+    jcfg, tcfg = jty.EngineConfig(**kw), tty.EngineConfig(**kw)
+    for node in range(3):
+        got = tty.init_state(tcfg, node, seed=2, device="cpu")
+        assert_same(jty.init_state(jcfg, node, seed=2),
+                    state_to_numpy(got), f"node {node}")
+        for sub in (got.trace, got.heat, got.qc):
+            if sub is not None:
+                ptrs = [getattr(sub, f.name).data_ptr()
+                        for f in dataclasses.fields(sub)]
+                assert len(set(ptrs)) == len(ptrs)
+    assert_same(jty.StepInfo.empty(jcfg),
+                state_to_numpy(tty.StepInfo.empty(tcfg, "cpu")))
+    c = DeviceCluster(tcfg, device="cpu")
+    info = c.tick(submit_n=1)
+    assert (info.cq_stepdown is None) == (not tcfg.check_quorum)
+    assert not info.debug_viol.any()
