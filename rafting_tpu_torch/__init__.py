@@ -7,7 +7,9 @@ with no card and no device given they raise.  Phase 10's quorum commit
 runs in a hand-written CUDA kernel on the card (``ops/csrc``).  The
 device nemesis (``run_cluster_ticks_nemesis``, ``testkit.nemesis``) and
 the optional subtrees (flight recorder, heat lanes, CheckQuorum, debug
-checks) run on the same step.
+checks) run on the same step.  The node runtime (``RaftNode``: host
+inbox, device step, WAL persist barrier, send, applies, maintain) and its
+in-process harness (``LocalCluster``) drive that step tick by tick.
 """
 
 from .core.cluster import (
@@ -23,11 +25,14 @@ from .core.types import (
     FaultSchedule, HeatState, HostInbox, Messages, QuorumContact, RaftState,
     StepInfo, TraceState, crash_restart, init_state,
 )
+from .runtime.node import RaftNode
+from .testkit.harness import LocalCluster
 
 __all__ = [
     "CANDIDATE", "DEBUG_CODES", "FOLLOWER", "LEADER", "NIL", "PRE_CANDIDATE",
     "DeviceCluster", "EngineConfig", "FaultSchedule", "HeatState",
-    "HostInbox", "Messages", "QuorumContact", "RaftState", "StepInfo",
+    "HostInbox", "LocalCluster", "Messages", "QuorumContact", "RaftNode",
+    "RaftState", "StepInfo",
     "TraceState", "auto_host_inbox", "cluster_step", "cluster_step_nemesis",
     "committed_entries", "crash_restart", "init_state", "node_step",
     "raise_debug_violations", "route", "run_cluster_ticks",

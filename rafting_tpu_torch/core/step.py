@@ -84,9 +84,12 @@ assert _TRACE_KINDS == tuple(k for k in range(1, len(_TRACE_KINDS) + 2)
 
 
 def raise_debug_violations(info: StepInfo, where: str = "") -> None:
-    """Host-side consumer of ``StepInfo.debug_viol``: raise naming the
-    first violating lane and its invariant (one host read)."""
-    viol = info.debug_viol.detach().cpu().numpy()
+    """Host-side consumer of ``StepInfo.debug_viol`` (a tensor, or a host
+    array once fetched): raise naming the first violating lane and its
+    invariant (one host read)."""
+    viol = info.debug_viol
+    viol = viol.detach().cpu().numpy() if isinstance(viol, Tensor) \
+        else np.asarray(viol)
     bad = np.nonzero(viol)
     if len(bad[0]):
         first = tuple(int(b[0]) for b in bad)

@@ -1,0 +1,3919 @@
+"""RaftNode: one live Multi-Raft node — device engine + host runtime.
+
+The top-level runtime object, playing the role of the reference's whole
+wiring layer (RaftContainer + ContextManager + RaftRoutine + NettyCluster,
+RaftContainer.java:41-58, context/ContextManager.java:43-55): it owns the
+device-resident consensus state for ALL groups, the durable log tier, the
+state-machine dispatcher, the snapshot archive and the transport endpoint,
+and advances everything with one `tick()`.
+
+Tick protocol (the host half of the engine's contract):
+
+1. build the HostInbox: queued client submissions, finished snapshot
+   installs, compaction grants from the maintain policy;
+2. drain the transport inbox accumulator into dense device arrays;
+3. run the fused device step (`node_step`) — all groups at once;
+4. PERSIST: stage WAL writes implied by the step (appended entries with
+   payloads, truncations, (term, ballot) stable records), then ONE
+   fsync-barrier `LogStore.sync()`;
+5. only then RELEASE the outbox to peers — the reference's
+   persist-before-reply durability rule (context/member/RaftMember.java:25,
+   RocksLog flushWal after append, command/storage/RocksLog.java:87,195)
+   amortized over every group in one barrier;
+6. drive state-machine applies from the new commit frontier;
+7. run the snapshot/compaction maintain policy and snapshot downloads.
+
+Payload flow: a leader's payloads enter via `submit()`; a follower's arrive
+staged with AppendEntries frames and are durably adopted only for the range
+the device engine actually accepted (StepInfo.appended_from/to).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from concurrent.futures import ThreadPoolExecutor
+
+from ..core.step import node_step
+from ..core.types import (
+    I32_SAFE_MAX, LEADER, NIL, EngineConfig, HostInbox, Messages,
+    StepInfo, boot_conf_word as _boot_conf_word, resolve_device,
+    stack_states, tree_map,
+)
+from ..log.store import LogStore, restore_raft_state
+from ..machine.dispatch import ApplyDispatcher
+from ..machine.spi import Checkpoint, MachineProvider
+from ..snapshot.archive import SnapshotArchive
+from ..snapshot.policy import MaintainAgreement
+from ..transport import InboxAccumulator, messages_template
+from ..transport.codec import (
+    EAGER_KINDS, KIND_FIELDS, assemble_slice, pack_hops, pack_kind_section,
+)
+from ..api.anomaly import (
+    BatchAbortedError, BusyLoopError, LeadershipEvacuatedError,
+    NotLeaderError, NotReadyError, ObsoleteContextError, OverloadError,
+    StorageFaultError, UnavailableError, as_refusal,
+)
+from .admission import admission_from_env
+from .txn import txn_plane_from_env
+from ..log.wal import WalNoSpace, WalSyncError
+from ..utils.health import health_from_env
+from ..utils.heat import heat_registry_from_env
+from ..utils.latency import (
+    ACKED, FSYNCED, HOP_ECHO, HOP_REQUEST, OFFERED, SENT, SERVED, STAGED,
+    hops_from_env, tracer_from_env,
+)
+from ..utils.metrics import Metrics
+from ..utils.profiling import TickProfiler
+from ..utils.tracelog import TraceLog
+
+log = logging.getLogger(__name__)
+
+# Shared length vector for election no-op spans (one empty payload);
+# consumers only read it.
+_NOOP_LENS = np.zeros(1, np.uint32)
+
+# The device seam.  The node keeps its engine state with the step's
+# explicit node axis at N = 1 (core/step.py); every host read takes row 0
+# and every host->device copy adds the axis, here and nowhere else.
+_NP_OF = {torch.bool: np.bool_, torch.int32: np.int32}
+_TORCH_OF = {np.dtype(v): k for k, v in _NP_OF.items()}
+
+
+def _host_lane(t: torch.Tensor) -> np.ndarray:
+    """Row 0 of one node-axis lane, as a fresh host array."""
+    return np.array(t[0].cpu())
+
+
+def _to_device(dicts, device: torch.device):
+    """Host arrays -> tensors on ``device`` with the node axis (N = 1),
+    through ONE host->device copy of a packed buffer.  On the card the
+    buffer is pinned and the copy non-blocking, so a pipelined tick does
+    not wait here for the step still in flight.  Lanes are packed widest
+    dtype first so every view stays aligned."""
+    items = sorted(((i, k, a) for i, d in enumerate(dicts)
+                    for k, a in d.items()),
+                   key=lambda it: -it[2].dtype.itemsize)
+    flat = torch.from_numpy(np.concatenate(
+        [np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+         for _, _, a in items]))
+    if device.type == "cuda":
+        flat = flat.pin_memory()
+    buf = flat.to(device, non_blocking=True)
+    out = [{} for _ in dicts]
+    off = 0
+    for i, k, a in items:
+        out[i][k] = buf[off:off + a.nbytes].view(_TORCH_OF[a.dtype]) \
+            .reshape((1,) + a.shape)
+        off += a.nbytes
+    return out
+
+
+def _to_host(trees):
+    """Row 0 of every tensor leaf of ``trees`` (state containers, tensors
+    or None) as numpy, in containers of the same structure, through ONE
+    device->host copy — the tick's one blocking point."""
+    leaves: list = []
+    for t in trees:
+        tree_map(leaves.append, t)
+    order = sorted(range(len(leaves)),
+                   key=lambda i: -leaves[i].element_size())
+    flat = torch.cat([leaves[i][0].contiguous().view(-1).view(torch.uint8)
+                      for i in order]).cpu().numpy()
+    host: list = [None] * len(leaves)
+    off = 0
+    for i in order:
+        t = leaves[i]
+        n = t[0].numel() * t.element_size()
+        host[i] = flat[off:off + n].view(_NP_OF[t.dtype]).reshape(
+            t.shape[1:])
+        off += n
+    it = iter(host)
+    return [tree_map(lambda _: next(it), t) for t in trees]
+
+
+def _reset_lanes(t: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
+    """A copy of node-axis lane ``t`` with groups ``idx`` set to
+    ``value``: a new tensor, never a write into one that a pipelined
+    tick context may still hold."""
+    out = t.clone()
+    out[0, idx] = value
+    return out
+
+
+class BatchSubmit:
+    """One future for a whole batch of commands (resolves to the list of
+    apply results in submission order; ``single=True`` — the plain
+    ``submit()`` path — resolves to the lone result itself and fails with
+    the bare error).  Amortizes the per-command ``Future`` cost — a
+    ``threading.Condition`` allocation per command was the top client-side
+    cost under dense load.  Speaks the dispatcher's promise-sink protocol
+    (``_complete``/``_fail``) directly, so a whole accepted batch registers
+    as ONE promise range.  Completion/failure happen on the tick thread
+    only (the dispatcher's single-writer rule), so no extra locking is
+    needed.  On failure the future raises ``BatchAbortedError`` carrying
+    per-slot outcomes, so an already committed-and-applied prefix is never
+    silently discarded."""
+
+    __slots__ = ("_future", "results", "completed", "_remaining", "single",
+                 "_err", "span")
+
+    # One shared lock for the lazy-future handoff (creation vs completion
+    # can race across client and tick threads).  Class-level on purpose: a
+    # lock PER batch would reintroduce the per-batch allocation cost the
+    # laziness exists to kill, and the critical sections are a few
+    # dictionary-free statements.
+    _lock = threading.Lock()
+
+    def __init__(self, n: int, single: bool = False, eager: bool = True):
+        """``eager=False`` defers the Future (and its Condition allocation)
+        until someone actually reads ``.future`` — the bulk fan-out path
+        (submit_batch_many) creates ~100k batches per round whose futures
+        are usually never awaited."""
+        self._future: Optional[Future] = Future() if eager else None
+        self.results: list = [None] * n
+        self.completed: list = [False] * n
+        self._remaining = n
+        self.single = single
+        self._err: Optional[Exception] = None
+        # Sampled lifecycle span riding this batch (utils/latency.py) —
+        # at most one entry per batch is traced, so the per-entry
+        # _complete loop stays span-free; the ack stamp fires once, when
+        # the batch resolves.
+        self.span = None
+
+    @property
+    def future(self) -> Future:
+        f = self._future
+        if f is None:
+            with self._lock:
+                f = self._future
+                if f is None:
+                    f = Future()
+                    # Completion state that landed before this publish is
+                    # replayed here; later completions see _future set.
+                    if self._err is not None:
+                        f.set_exception(self._err)
+                    elif self._remaining == 0:
+                        f.set_result(
+                            self.results[0] if self.single else self.results)
+                    self._future = f
+        return f
+
+    def _complete(self, k: int, result) -> None:
+        self.results[k] = result
+        self.completed[k] = True
+        self._remaining -= 1
+        if self._remaining == 0:
+            sp = self.span
+            if sp is not None:
+                sp.mark(ACKED if sp.kind == "w" else SERVED)
+                sp.tr.retire(sp, "ok")
+            with self._lock:
+                f = self._future
+            if f is not None and not f.done():
+                f.set_result(
+                    self.results[0] if self.single else self.results)
+
+    def _fail(self, err: Exception) -> None:
+        sp = self.span
+        if sp is not None:
+            # The batch died after (possibly) entering the log: the
+            # entry MAY still commit on a new leader — outcome-unknown,
+            # never a fabricated latency (utils/latency.py).
+            sp.tr.retire(sp, "unknown")
+        wrapped = err if self.single else BatchAbortedError(
+            err, list(self.results), list(self.completed))
+        with self._lock:
+            if self._err is None:
+                self._err = wrapped
+            f = self._future
+        if f is not None and not f.done():
+            f.set_exception(wrapped)
+
+    def _refuse(self, err: Exception) -> None:
+        """Pre-log refusal of the WHOLE batch: nothing was enqueued, so the
+        future carries the bare (marked) refusal — not a BatchAbortedError
+        — matching submit_batch's refusal contract."""
+        sp = self.span
+        if sp is not None:
+            sp.tr.retire(sp, "refused")   # provably never entered the log
+        with self._lock:
+            if self._err is None:
+                self._err = err
+            f = self._future
+        if f is not None and not f.done():
+            f.set_exception(err)
+
+
+class _SubBatch:
+    """One queued client batch: an arena of payload bytes plus its promise
+    sink.  ``taken`` tracks how many entries the device already accepted
+    (a batch can be consumed across ticks); the queue drops it once fully
+    taken.  Building the arena happens on the CLIENT thread (submit /
+    submit_batch), so the tick thread's accept path is pure pointer
+    arithmetic — no per-entry Python ever again."""
+
+    __slots__ = ("run", "sink", "taken", "t_enq")
+
+    def __init__(self, run, sink: BatchSubmit):
+        self.run = run          # codec.PayloadRun (start unused: 0)
+        self.sink = sink
+        self.taken = 0
+        # Enqueue instant — the sojourn clock the admission controller's
+        # queue-delay signal reads at device-accept time (runtime/
+        # admission.py).
+        self.t_enq = time.monotonic()
+
+
+class _ReadBatch:
+    """One queued linearizable read batch: query payloads + promise sink.
+
+    Read batches move through four host stages mirroring the device FIFO
+    (core/types.py rq_* lanes): WAITING (client-enqueued) -> OFFERED
+    (this tick's HostInbox.read_n) -> PENDING (device stamped it with a
+    ReadIndex; awaiting the quorum barrier) -> RELEASED (barrier
+    confirmed; served once ``applied >= read_index``).  Unlike
+    submissions, a read batch is atomic — the device stamps it whole or
+    not at all — so there is no ``taken`` cursor."""
+
+    __slots__ = ("payloads", "sink", "t_enq")
+
+    def __init__(self, payloads, sink: BatchSubmit, t_enq: float):
+        self.payloads = payloads
+        self.sink = sink
+        self.t_enq = t_enq
+
+
+class _TickCtx:
+    """One tick in flight through the durable pipeline.
+
+    Created by ``_dispatch`` holding device-array references (the scan may
+    still be executing); ``_fetch`` swaps them for host numpy arrays; the
+    host phase (``_host_phase``) consumes those.  Carrying the per-tick
+    inputs (inbox arrays, staged payload runs, offered counts) here is
+    what lets the NEXT scan dispatch before this tick's host work runs."""
+
+    __slots__ = (
+        # dispatch-time host inputs
+        "submit_n", "read_n", "staged_payloads", "arrays",
+        # device refs (dispatch) -> host arrays (fetch)
+        "info", "outbox", "term", "voted", "role", "leader", "commit",
+        "base", "base_term", "heat",
+        # Eager-send bookkeeping (pipelined mode): per-peer AE columns
+        # whose payloads were not staged at fetch time — the host phase
+        # packs exactly these after the barrier.  None = pipeline off
+        # (every kind packs post-fsync, the classic send).
+        "deferred_ae",
+    )
+
+
+class _PersistPrep:
+    """The orchestrator half of a tick's persist, precomputed once and
+    handed to stripe workers: columnar change-detection arrays, the popped
+    submission spans, and the staged-frame metadata.  Building this is
+    cheap (a handful of fancy indexes + one lock'd queue pop); the
+    per-written-group span staging it feeds is the expensive part and is
+    what stripes across workers (``_persist_stage``)."""
+
+    __slots__ = (
+        "dirty_mask", "log_tail", "h_term", "h_voted",
+        "h_base", "h_base_term",
+        "wrote", "wrote_l", "lo_l", "hi_l", "nsub_l", "sublo_l",
+        "src_l", "term_l", "fr_valid", "fr_n", "fr_start",
+        "fr_ents", "fr_cents", "own_by_g", "staged_payloads",
+        "noop_g", "noop_idx", "noop_term",
+        "conf_app", "conf_term", "conf_word",
+        "stable_mask", "sub_acc", "submit_n",
+    )
+
+
+class RaftNode:
+    def __init__(self, cfg: EngineConfig, node_id: int, data_dir: str,
+                 provider: MachineProvider,
+                 transport_factory: Callable,
+                 seed: int = 0,
+                 maintain: Optional[MaintainAgreement] = None,
+                 initial_active: Optional[np.ndarray] = None,
+                 group_queue_cap: int = 512,
+                 total_queue_cap: int = 500_000,
+                 busy_threshold: int = 1_000,
+                 store=None,
+                 serializer=None,
+                 pipeline: Optional[bool] = None,
+                 wal_shards: Optional[int] = None,
+                 host_workers: Optional[int] = None,
+                 latency_slo_s: Optional[float] = None,
+                 device=None):
+        """``transport_factory(node, on_slice, snapshot_provider)`` builds
+        the transport endpoint (TcpTransport / LoopbackTransport).
+        ``initial_active`` masks which group lanes start open (default all;
+        the container passes the admin-group view so closed groups stay
+        inert, reference Administrator restart re-creation,
+        command/admin/Administrator.java:50-57).
+        ``store``: any LogStoreSPI product (log/spi.py; reference StateLoader
+        SPI via RaftFactory.loadState, support/RaftFactory.java:18) —
+        default is the durable segmented WAL under ``data_dir``.
+        ``serializer``: CmdSerializer for command/result encoding across
+        the leader-forward relay (api/serial.py; reference CmdSerializer,
+        support/serial/CmdSerializer.java:11-24) — default JSON.
+        ``pipeline``: run the double-buffered durable pipeline (see
+        ``tick``).  Default: env RAFT_PIPELINE if set (0/false = serial),
+        else ON exactly when the engine runs on an accelerator backend —
+        there the fused scan is the dominant tick cost and overlapping it
+        with the host phase pays; on the CPU backend the scan is a small
+        slice of a host-bound tick, so the pipeline's +1-tick message
+        latency costs more than the overlap saves (measured 0.84x at 32k
+        groups — see BENCH_PIPELINE in bench_runtime.py for the A/B).
+        ``wal_shards``: stripe count for the default WAL store (ignored
+        when ``store`` is passed) — default from env RAFT_WAL_SHARDS,
+        else 4.
+        ``host_workers``: width of the striped host tier — the persist /
+        apply / outbox-packing phase fans out over this many workers,
+        each owning a disjoint, WAL-stripe-aligned set of groups
+        end-to-end (see _host_phase_striped).  1 (the default, or env
+        RAFT_HOST_WORKERS) keeps the classic serial host phase; the
+        effective width is clamped to the store's stripe count.
+        ``latency_slo_s``: end-to-end commit-latency SLO target the
+        latency plane's burn gauges measure against (utils/latency.py)
+        — default env RAFT_SLO_MS (milliseconds), else 500ms.
+        ``device``: where the engine state lives and the step runs
+        (default: the CUDA card; raises without one — pass ``"cpu"`` for
+        the plain version)."""
+        from ..api.serial import JsonSerializer
+
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.node_id = node_id
+        self.data_dir = data_dir
+        self.serializer = serializer or JsonSerializer()
+        os.makedirs(data_dir, exist_ok=True)
+        if pipeline is None:
+            env = os.environ.get("RAFT_PIPELINE", "").strip().lower()
+            if env:
+                pipeline = env not in ("0", "false", "no", "off")
+            else:
+                pipeline = self.device.type != "cpu"
+        self.pipeline = bool(pipeline)
+        if wal_shards is None:
+            wal_shards = int(os.environ.get("RAFT_WAL_SHARDS", "4"))
+        if host_workers is None:
+            host_workers = int(os.environ.get("RAFT_HOST_WORKERS", "1"))
+
+        self.store = store if store is not None \
+            else LogStore(os.path.join(data_dir, "wal"),
+                          shards=max(1, wal_shards))
+        # Striped host tier (see _host_phase_striped): W workers each own
+        # a disjoint set of WAL stripes end-to-end (arena staging → fsync
+        # → apply → outbox packing), so no two workers ever touch the same
+        # group's store cache, machine, or WAL shard — single-writer per
+        # group is preserved by construction, not by locks.  Width clamps
+        # to the stripe count (a worker without a whole stripe would share
+        # a shard file, breaking the disjoint-fsync barrier) and stays 1
+        # when the store can't fsync stripes independently.
+        n_stripes = int(getattr(self.store, "n_stripes", 1))
+        can_stripe = hasattr(self.store, "sync_stripes")
+        self.host_workers = max(1, int(host_workers))
+        self._w_eff = min(self.host_workers, n_stripes) if can_stripe else 1
+        G0 = cfg.n_groups
+        # group -> WAL stripe (the store's g % S map), shared by the
+        # striped host tier and the storage-fault quarantine plane.
+        self._stripe_of = np.arange(G0, dtype=np.int64) % n_stripes
+        self._n_stripes = n_stripes
+        if self._w_eff > 1:
+            stripe_of = self._stripe_of
+            worker_of = stripe_of % self._w_eff
+            self._worker_masks = [worker_of == k for k in range(self._w_eff)]
+            self._worker_groups = [np.nonzero(m)[0] for m in self._worker_masks]
+            self._worker_stripes = [
+                [s for s in range(n_stripes) if s % self._w_eff == k]
+                for k in range(self._w_eff)]
+        else:
+            self._worker_masks = [np.ones(G0, bool)]
+            self._worker_groups = [np.arange(G0, dtype=np.int64)]
+            self._worker_stripes = [list(range(n_stripes))]
+        # Native host tier (_host_phase_native): the per-tick stage →
+        # fsync hot loop crosses into the WAL engine's C side ONCE, with
+        # real OS threads per stripe-set (no GIL) — auto-selected when
+        # the .so exports it, forced on/off with RAFT_NATIVE_HOST=1/0.
+        # Byte-identical WAL layout to the Python paths, so recovery is
+        # interchangeable between backends.
+        can_native = bool(getattr(self.store, "can_stage_native", False))
+        env_native = os.environ.get("RAFT_NATIVE_HOST", "").strip().lower()
+        if env_native in ("0", "false", "no", "off"):
+            self._native_host = False
+        elif env_native:
+            self._native_host = can_native
+            if not can_native:
+                log.warning(
+                    "RAFT_NATIVE_HOST=%s but the native stage_and_sync "
+                    "entry point is unavailable — using the Python host "
+                    "tier", env_native)
+        else:
+            self._native_host = can_native
+        self._w_native = min(self.host_workers, n_stripes) \
+            if self._native_host else 1
+        self._host_pool: Optional[ThreadPoolExecutor] = None
+        self.archive = SnapshotArchive(os.path.join(data_dir, "snapshots"))
+        self.dispatcher = ApplyDispatcher(
+            provider, self._payload,
+            payload_window_fn=self.store.payloads_window,
+            payload_runs_fn=getattr(self.store, "payload_runs", None))
+        self.maintain = maintain or MaintainAgreement(cfg.n_groups)
+        self.template = messages_template(cfg)
+        self.acc = InboxAccumulator(cfg, self.template)
+        self.transport = transport_factory(self, self.acc.merge,
+                                           self._serve_snapshot)
+
+        # Crash recovery: device state from the WAL (reference
+        # RaftContext.initialize restore order, context/RaftContext.java:
+        # 91-113), machines from their newest archived snapshot.
+        state = restore_raft_state(cfg, node_id, self.store, seed=seed,
+                                   device=self.device)
+        if initial_active is not None:
+            state = state.replace(active=torch.as_tensor(
+                np.asarray(initial_active, bool), device=self.device))
+        self.state = stack_states([state])
+        self._recover_machines()
+        self.h_active = _host_lane(self.state.active)
+
+        # Group lifecycle changes (open/close), applied at the next tick on
+        # the tick thread (reference ContextManager create/exit/destroy,
+        # context/ContextManager.java:112-167).
+        self._lifecycle_lock = threading.Lock()
+        self._lifecycle: List[Tuple[int, bool, bool]] = []  # (group, active, purge)
+        # Lane incarnations this node has activated: when the admin layer
+        # re-allocates a lane to a NEW group (gen bump) and this node missed
+        # the destroy (meta-snapshot catch-up), the gen mismatch forces a
+        # purge before activation.
+        self._lane_gens_path = os.path.join(data_dir, "lane_gens.json")
+        self._lane_gens: Dict[str, int] = {}
+        if os.path.exists(self._lane_gens_path):
+            try:
+                with open(self._lane_gens_path) as f:
+                    self._lane_gens = json.load(f)
+            except (OSError, ValueError):
+                self._lane_gens = {}
+
+        # Host mirrors of per-group device lanes (refreshed each tick).
+        G = cfg.n_groups
+        self.h_role = np.zeros(G, np.int32)
+        self.h_leader = np.full(G, NIL, np.int32)
+        self.h_term = _host_lane(self.state.term)
+        self.h_commit = _host_lane(self.state.commit)
+        self.h_base = _host_lane(self.state.log.base)
+        # Floors already pushed to the WAL (mirror, avoids per-group floor
+        # queries every tick).
+        self._wal_floor = self.h_base.astype(np.int64).copy()
+        # Durable-state mirrors for change detection: _persist visits only
+        # groups whose (term, ballot) or durable tail actually moved, so
+        # the steady-state staging cost is O(groups-with-writes), not O(G)
+        # (VERDICT r3 #2 — the per-dirty-group Python loops were the
+        # durable tier's scaling wall).  After restore the device log tail
+        # IS the durable tail, and stable sentinels of -2 force the first
+        # write per lane.
+        self._stable_term_m = np.full(G, -2, np.int64)
+        self._stable_voted_m = np.full(G, -2, np.int64)
+        self._durable_tail_m = _host_lane(self.state.log.last) \
+            .astype(np.int64)
+        # Readiness gate (reference Leader.isReady, Leader.java:52-64): a
+        # fresh leader reports not-ready until a majority of peers reply.
+        self.h_ready = np.zeros(G, bool)
+
+        # Client submissions: group -> FIFO of _SubBatch arenas, bounded
+        # (reference EventLoop queue capacity + busy threshold,
+        # support/EventLoop.java:16-17, 136-138).  _queued_n mirrors each
+        # queue's ENTRY count so the per-tick submit_n inbox lane is one
+        # numpy minimum over all groups instead of a dict walk.
+        self._submit_lock = threading.Lock()
+        self._submissions: Dict[int, deque] = {}
+        self._queued_n = np.zeros(G, np.int32)
+        self._queued_total = 0
+        self.group_queue_cap = group_queue_cap
+        self.total_queue_cap = total_queue_cap
+        self.busy_threshold = busy_threshold   # free slots -> BusyLoopError
+        # Admission control (runtime/admission.py): CoDel-style queue-
+        # delay policy over the offer queues.  The hard caps above are
+        # correctness backstops; the controller sheds BEFORE they fill,
+        # keeping admitted-request latency bounded under open-loop
+        # overload.  RAFT_ADMISSION=0 disables (admit() then always
+        # passes and only the caps remain).
+        self.admission = admission_from_env(seed=seed ^ node_id)
+        self._adm_delay: Optional[float] = None  # this tick's sojourn sample
+        self._adm_fold = [0, 0, 0, 0]  # counters folded into metrics
+        # Cross-group transaction plane (runtime/txn.py): the driver
+        # gate client threads check before txn_begin (txn-level shed),
+        # and the deadline-expiry recovery sweep the tick loop drives
+        # for groups this node leads.
+        self.txn = txn_plane_from_env()
+
+        # Linearizable read plane (ReadIndex + lease, core/step.py phase
+        # 8b): the host-side FIFO mirror of the device's rq_* lanes.  A
+        # batch is WAITING until the group's offer slot frees, OFFERED for
+        # exactly the ticks its HostInbox.read_n is up, PENDING once the
+        # device stamps it (StepInfo.read_acc/read_index), RELEASED once
+        # the quorum barrier confirms (read_rel, FIFO order), and served —
+        # the machine queried at ``applied >= read_index`` — on the tick
+        # thread.  Reads never enter the log, so EVERY read failure is a
+        # marked retry-safe refusal (api/anomaly.py as_refusal).
+        self._read_lock = threading.Lock()
+        self._reads_waiting: Dict[int, deque] = {}
+        self._reads_offered: Dict[int, _ReadBatch] = {}
+        self._reads_pending: Dict[int, deque] = {}   # (read_index, batch)
+        self._reads_released: Dict[int, deque] = {}  # (read_index, batch)
+        self._read_queued_n = np.zeros(G, np.int32)
+        # Columnar serve gate: per group, the smallest read_index any
+        # released batch still waits on (int64 sentinel = no batch).
+        # _serve_reads visits nonzero(applied >= _rel_min) instead of
+        # walking every group with a released deque each tick.
+        self._rel_min = np.full(G, np.iinfo(np.int64).max, np.int64)
+        # Wall-clock pause detection feeding HostInbox.read_veto: a tick
+        # gap longer than read_fresh_ticks intervals means stored lease
+        # evidence (and anything queued in the inbox across the pause) is
+        # stale — the host analog of the device fault model's
+        # stall-loses-inbound rule.  Armed only when the tick loop runs on
+        # a real cadence (start(); manual tick() drivers have no
+        # wall-clock meaning).
+        self._tick_interval: Optional[float] = None
+        self._last_tick_wall: Optional[float] = None
+        self._read_veto_hold = 0   # ticks of veto left after a pause
+
+        # Membership plane (§6): pending change/transfer requests, offered
+        # to the device every tick until accepted or failed (the device
+        # refuses silently while another change is in flight; acceptance
+        # latches into the log).  Mirrors of the device's active config
+        # feed membership() and the request-settled checks.
+        self._member_lock = threading.Lock()
+        # g -> [target_voters, target_learners, Future, accepted: bool]
+        self._conf_pending: Dict[int, list] = {}
+        # g -> [target_peer, Future, fired: bool]
+        self._xfer_pending: Dict[int, list] = {}
+        self.h_conf_word = _host_lane(self.state.conf_word)
+        self.h_conf_idx = _host_lane(self.state.conf_idx)
+        self.h_conf_pending = self.h_conf_idx > self.h_commit
+        # Snapshot-install config round trip: the offer's config word,
+        # pended at request time, fed back as HostInbox.snap_conf on
+        # completion (g -> (offered_idx, word)).
+        self._snap_conf: Dict[int, Tuple[int, int]] = {}
+
+        # Snapshot downloads: a BOUNDED global worker pool fetches bytes to
+        # temp files (reference: ONE dedicated snapshot NIO thread,
+        # transport/NettyCluster.java:42-43 — thread-per-lagging-group
+        # would spawn thousands under 100k-group catch-up, BASELINE config
+        # 5); every store/dispatcher/archive mutation happens on the tick
+        # thread (single-writer discipline — the analog of the reference's
+        # per-group event-loop rule, context/member/RaftMember.java:31-35).
+        self._snap_lock = threading.Lock()
+        self._snap_cv = threading.Condition(self._snap_lock)
+        self._snap_fetched: List[Tuple[int, int, int, str]] = []
+        self._snap_inflight: set = set()
+        # Queue entries carry the lane's fetch epoch: a purge bumps it, so
+        # a stale queued fetch can never run against a recreated lane even
+        # if the lane has re-entered _snap_inflight by the time a worker
+        # pops it (single-flight per group is epoch+membership together).
+        # A deque: mass catch-up (100k lagging groups, BASELINE config 5)
+        # enqueues that many entries, and a list.pop(0) drain would be
+        # O(n^2) under the lock the tick thread shares.
+        self._snap_queue: "deque[Tuple[int, int, int, int, int]]" = deque()
+        self._snap_epoch: Dict[int, int] = {}
+        self._snap_threads: List[threading.Thread] = []
+        self.snap_fetch_workers = 4
+
+        # Compaction grants computed at the end of tick t, applied in t+1.
+        self._compact_grant = np.zeros(G, np.int64)
+
+        # WAL GC cadence/thresholds (VERDICT r1 #5: milestones advance the
+        # logical floor, but disk is only reclaimed by the checkpoint
+        # rewrite — trigger it when the dead fraction justifies the cost).
+        # The rewrite runs three-phase so the tick thread never stalls on
+        # it: begin (seal+rotate) and finish (swap+repoint) are bounded;
+        # the live-set rewrite happens on _gc_thread (VERDICT r2 #6).
+        self.wal_gc_check_ticks = 128
+        self.wal_gc_ratio = 4.0
+        self.wal_gc_min_bytes = 8 << 20
+        # Hard bound on checkpoint work per tick: whatever the policy says
+        # is due, at most this many machines checkpoint in one tick (the
+        # rest stay due and drain over the following ticks) — maintenance
+        # must never own the tick latency (reference: checkpoints run on a
+        # bounded 5-thread pool off the loop, RaftRoutine.java:46-49).
+        # Scaled with the group count: compaction can only advance past a
+        # snapshot, so sustained acceptance per group is bounded by
+        # cap * (log_slots - slack) / n_groups entries per tick — a FIXED
+        # cap silently throttled the whole durable tier to ~0.65
+        # entries/tick/group at 100k groups (the r4 "falling with scale"
+        # curve).  The clamp keeps per-tick checkpoint work bounded
+        # (~100-150us each) so maintenance still cannot own tick latency.
+        self.max_checkpoints_per_tick = min(1536, max(256,
+                                                      cfg.n_groups // 32))
+        self._ckpt_cursor = 0   # round-robin position for the cap above
+        # Off-thread checkpoint saves: the tick thread serializes the
+        # machine (single-writer rule — applies mutate it) and enqueues the
+        # archive copy/rotate to a small worker pool; completions are
+        # harvested next maintain pass, and only THEN does the milestone
+        # feed the compaction policy (a grant must never outrun its saved
+        # snapshot).  The queue is bounded: when full, remaining due groups
+        # simply stay due — backpressure, not loss.  _ckpt_inflight keeps
+        # at most ONE save in flight per group, so same-group archive
+        # ordering needs no worker sharding.
+        self._ckpt_cv = threading.Condition()
+        self._ckpt_queue: "deque[Tuple[int, str, int, int]]" = deque()
+        self._ckpt_done: List[Tuple[int, int, bool]] = []
+        self._ckpt_inflight: set = set()
+        self._ckpt_threads: List[threading.Thread] = []
+        self.ckpt_workers = 2
+        self.ckpt_queue_cap = 4 * self.max_checkpoints_per_tick
+        # _gc_phase handoff protocol: the tick thread writes 0->1 (start),
+        # the worker writes 1->2 or 1->-1 (done/failed), the tick thread
+        # consumes 2/-1 back to 0.  Exactly one side may write in each
+        # phase, and the value is a single int — atomic under CPython's
+        # GIL.  A free-threaded runtime would need a threading.Event here.
+        self._gc_phase = 0       # 0 idle / 1 rewriting / 2 finish / -1 abort
+        self._gc_thread: Optional[threading.Thread] = None
+
+        self.ticks = 0
+        # Counter/gauge/histogram registry (SURVEY §5: the build must add
+        # commits/sec, election counts, per-step latency histograms).
+        self.metrics = Metrics()
+        # Membership counters render at 0 on /metrics from boot
+        # (tests/test_metrics_prom.py asserts the exposition carries them).
+        for _c in ("membership_changes_entered",
+                   "membership_changes_committed",
+                   "membership_changes_aborted",
+                   "leadership_transfers_attempted",
+                   "leadership_transfers_succeeded",
+                   "leadership_transfers_aborted",
+                   "timeout_now_sent"):
+            self.metrics[_c] += 0
+        # Storage-fault plane (see _storage_fault): failure-response
+        # policy state + its counters, rendered at 0 from boot.
+        #   - fsync failure     -> fail-stop stripe quarantine (never
+        #     retry fsync on the failed fd — fsyncgate), lanes go silent;
+        #   - ENOSPC            -> admission backpressure, barrier retried
+        #     (engines kept their staged buffers);
+        #   - slow fsync        -> gray-failure watchdog gauge;
+        #   - conf-flush error  -> transient, retried next barrier.
+        self._poisoned_stripes: set = set()
+        self._healthy_groups: Optional[np.ndarray] = None  # None = all
+        # Device-feed clamp: the per-group tail actually CONFIRMED by a
+        # barrier.  None = every staged record is synced and the staged
+        # mirror (_durable_tail_m) is the truth (the zero-copy fast
+        # path); materialized only while a barrier failure leaves staged-
+        # but-unsynced records, so the scan can never self-ack them.
+        self._acked_tail: Optional[np.ndarray] = None
+        self._sync_pending = False     # kept buffers / dirty conf to flush
+        self._io_backpressure = False  # ENOSPC: refuse new submissions
+        self._io_slow = False
+        self._slow_io_s = float(os.environ.get("RAFT_SLOW_IO_S", "0.5"))
+        # Background snapshot scrubber (archive.scrub): a budgeted pass
+        # every interval, a few groups per pass, round-robin cursor.
+        self.scrub_interval_ticks = int(
+            os.environ.get("RAFT_SCRUB_TICKS", "512"))
+        self.scrub_groups_per_pass = 4
+        self._scrub_cursor = 0
+        for _c in ("fsync_failures", "enospc_backpressure",
+                   "storage_transient_errors", "slow_io_ticks",
+                   "ckpt_failures", "scrub_ok", "scrub_corrupt",
+                   "reconnects_total"):
+            self.metrics[_c] += 0
+        # Network-nemesis counters (transport/faults.py): rendered at 0
+        # so a clean cluster exposes the whole injection family and a
+        # chaos run's effects are visible on the ordinary /metrics page.
+        from ..transport.faults import COUNTERS as _FAULT_COUNTERS
+        for _c in _FAULT_COUNTERS:
+            self.metrics[_c] += 0
+        self.metrics.gauge("stripes_poisoned", 0)
+        self.metrics.gauge("io_backpressure", 0)
+        self.metrics.gauge("io_slow", 0)
+        # Admission-control plane: counters render at 0 from boot; the
+        # level gauge tracks the controller's shed probability.
+        for _c in ("admission_admitted", "admission_shed",
+                   "admission_shed_tenant", "admission_expired"):
+            self.metrics[_c] += 0
+        self.metrics.gauge("admission_level", 0.0)
+        self.metrics.gauge("admission_shedding", 0)
+        # Txn-plane counters rendered from boot (same contract as the
+        # admission counters: a scraper sees the series at 0, not a gap).
+        for _name in ("txn_committed", "txn_aborted", "txn_refused",
+                      "txn_unknown", "txn_resolved_commit",
+                      "txn_resolved_abort", "txn_resolve_retry"):
+            self.metrics[_name] += 0
+        self.metrics.gauge("txn_inflight", 0.0)
+        # The transport reports its own health (reconnects_total) into
+        # the node registry; set before start() spawns sender threads.
+        self.transport.metrics = self.metrics
+        # Per-entry commit-path latency plane (utils/latency.py): a
+        # seeded deterministic sampler stamps span records through
+        # submitted -> offered -> staged -> fsynced -> sent -> committed
+        # -> applied -> acked (served for reads).  RAFT_LAT_SAMPLE=0
+        # disables it entirely — the node holds None and every hot-path
+        # hook is one is-None check.
+        if latency_slo_s is None:
+            latency_slo_s = float(
+                os.environ.get("RAFT_SLO_MS", "500")) / 1e3
+        self._lat = tracer_from_env(seed=seed, slo_s=latency_slo_s)
+        # Spans offered to the device THIS tick, awaiting the tick's
+        # staged/fsynced/sent stamps (tick/host-phase thread only).
+        self._lat_tick: list = []
+        # Recent striped-tier per-worker (stage, fsync, send, apply)
+        # wall times for /timeline + debug dumps; inert in serial mode.
+        self._worker_util: deque = deque(maxlen=256)
+        # Last native/Python WAL-engine stats snapshot (cumulative
+        # counters — _fold_wal_stats folds deltas into the registry).
+        self._wal_stat_last: Optional[dict] = None
+        self.metrics.gauge(
+            "lat_sample_rate", self._lat.rate if self._lat else 0)
+        # Per-group heat accounting (cfg.heat): the fetched device heat
+        # lanes drain into a decaying host registry each tick — top-K hot
+        # groups, idleness ages, and the active-set gauge (the proof
+        # metric for the sparse-tick work, ROADMAP item 2).  None when
+        # the config carries no heat lanes.
+        self.heat = heat_registry_from_env(G) if cfg.heat else None
+        if self.heat is not None:
+            for _c in ("heat_appended", "heat_sent", "heat_commits",
+                       "heat_reads"):
+                self.metrics[_c] += 0
+            self.metrics.gauge("heat_active_set", 0)
+            self.metrics.gauge("heat_half_life_ticks", self.heat.half_life)
+        # Cross-node hop tracing (utils/latency.py HopTracer): decomposes
+        # a sampled span's send_commit into per-peer wire/fsync/quorum
+        # segments via a HOPS sideband on the AE traffic.  Enabled by
+        # default whenever the transport exists — a node must echo hop
+        # contexts for its LEADERS' samples even if its own sampling is
+        # off — and disabled with RAFT_HOP_TRACE=0.
+        self._hops = hops_from_env(node_id, cfg.n_peers)
+        if self._hops is not None:
+            for _c in ("hop_tracked", "hop_requests_sent", "hop_echoes",
+                       "hop_finalized", "hop_dropped_unknown",
+                       "hop_expired", "hop_foreign_seen",
+                       "hop_foreign_expired"):
+                self.metrics[_c] += 0
+            self.transport.on_hops = self._on_hops
+        # Gray-failure self-healing plane (utils/health.py): decayed
+        # per-peer + self scorecards fed each tick from the hop
+        # histograms, the storage-fault plane, the transport and the
+        # admission controller; the CheckQuorum contact lanes feed
+        # last-contact at an admin cadence.  A self-degraded node
+        # EVACUATES leadership (rate-limited, never to a degraded
+        # peer) instead of waiting for the device-side 6c step-down.
+        # RAFT_HEALTH=0 disables the whole plane.
+        self.health = health_from_env(cfg.n_peers, node_id)
+        for _c in ("checkquorum_stepdowns", "leader_evacuations",
+                   "lease_vetoes"):
+            self.metrics[_c] += 0
+        if self.health is not None:
+            self.metrics.gauge("health_self_score", 0.0)
+            self.metrics.gauge("health_self_degraded", 0)
+            self.metrics.gauge("health_degraded_peers", 0)
+        # Groups this node evacuated: group -> (target, expiry tick).
+        # Read by _refusal to return the typed LeadershipEvacuated
+        # refusal (api/anomaly.py) while the fleet re-points.
+        self._evacuated: Dict[int, Tuple[int, int]] = {}
+        self._evac_cooldown = int(os.environ.get(
+            "RAFT_EVAC_COOLDOWN_TICKS", str(8 * cfg.election_ticks)))
+        self._evac_groups_per_round = int(
+            os.environ.get("RAFT_EVAC_GROUPS", "8"))
+        self._evac_next_ok = 0
+        # Flight-recorder drain (cfg.trace_depth > 0): per-group decoded
+        # timelines + labeled metrics (elections by cause, leader churn)
+        # harvested from the device event rings each tick.  Inert when
+        # tracing is off.  Served over HTTP by start_observability().
+        self.tracelog = TraceLog(cfg)
+        self._obsrv = None
+        # Device-profiler hook (SURVEY §5): bounded capture of the tick
+        # loop; armed via profile_ticks() or RAFT_PROFILE_DIR.
+        self.profiler = TickProfiler.from_env()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # Double-buffered pipeline state: the fetched-but-not-yet-host-
+        # processed tick (see tick()).  Owned by the tick thread.
+        self._pending: Optional[_TickCtx] = None
+        # Per-group offer counts riding the in-flight/pending tick, so the
+        # next dispatch never offers the same queued entry twice (the
+        # device accepting both would outrun the host queues).
+        self._inflight_submit = np.zeros(G, np.int32)
+        self._inflight_read = np.zeros(G, np.int32)
+        # Per-peer outbox sections accumulated across a tick's packing
+        # sites (striped workers' deferred/non-eager sections + the eager
+        # AE pack) and flushed as ONE frame per peer at end of tick — the
+        # accumulator drains one slice per source per tick, so two frames
+        # would back up.  Dict cells are written by at most one worker per
+        # (peer, site): workers stash into per-call lists and the
+        # orchestrator folds, so no cross-thread list.append races.
+        self._held_sections: Dict[int, List[bytes]] = {}
+        self.metrics.gauge("pipeline_enabled", int(self.pipeline))
+        self.metrics.gauge("wal_shards",
+                           getattr(getattr(self.store, "wal", None),
+                                   "n_shards", 1))
+        self.metrics.gauge("host_workers", self._w_eff)
+        self.metrics.gauge("native_host", int(self._native_host))
+        # Eager leader sends (pipelined mode): AE frames released right
+        # after fetch, ahead of the tick's own fsync (safe — commit only
+        # counts fsynced self-matches via HostInbox.durable_tail).
+        self.metrics["eager_sends"] += 0
+
+    # ------------------------------------------------------------------ API
+
+    def start(self, tick_interval: float = 0.02) -> None:
+        """Run the tick loop in a background thread (the node's
+        'event loop'; interval plays the reference's tick,
+        support/RaftConfig.java:171-185)."""
+        self._tick_interval = tick_interval
+        self.transport.start()
+        self._thread = threading.Thread(
+            target=self._run, args=(tick_interval,),
+            name=f"raft-node-{self.node_id}", daemon=True)
+        self._thread.start()
+
+    def start_observability(self, host: str = "127.0.0.1",
+                            port: int = 0):
+        """Attach and start the HTTP observability plane (/metrics,
+        /healthz, /timeline — runtime/obsrv.py).  Returns the server;
+        read ``.port`` for the bound port.  Closed with the node."""
+        from .obsrv import ObservabilityServer
+
+        if self._obsrv is None:
+            self._obsrv = ObservabilityServer(self, host, port).start()
+        return self._obsrv
+
+    def latency_snapshot(self) -> dict:
+        """The /latency document (runtime/obsrv.py): sampler state, SLO
+        burn, per-phase and end-to-end percentiles, recent sampled spans
+        — plus the WAL engines' per-stripe stage/fsync/pack counters and
+        the striped tier's recent per-worker utilization.  Snapshot
+        reads only; safe off the tick thread (same contract as
+        /metrics)."""
+        tr = self._lat
+        doc = {"enabled": tr is not None}
+        if tr is not None:
+            doc.update(tr.snapshot(self.metrics))
+        wal = getattr(self.store, "wal", None)
+        per = getattr(wal, "stats_per_stripe", None)
+        if per is not None:
+            doc["wal_stripes"] = [
+                dict(s, stripe=i) for i, s in enumerate(per())]
+        doc["worker_util"] = list(self._worker_util)
+        doc["txn_plane"] = self.txn.snapshot()
+        if self._hops is not None:
+            # Hop-phase decomposition of send_commit (the fleet
+            # attribution plane) rides the latency document too, so one
+            # scrape answers both "when" and "where".
+            doc["hops"] = self._hops.snapshot(self.metrics)
+        return doc
+
+    def heatmap_snapshot(self, k: int = 16) -> dict:
+        """The /heatmap document (runtime/obsrv.py): decayed top-K hot
+        groups, idleness-age distribution, active-set size.  Snapshot
+        reads only — safe off the tick thread (utils/heat.py)."""
+        if self.heat is None:
+            return {"enabled": False}
+        doc = {"enabled": True}
+        doc.update(self.heat.snapshot(k))
+        return doc
+
+    def hops_snapshot(self) -> dict:
+        """The /hops document (runtime/obsrv.py): per-peer and aggregate
+        hop-segment summaries + recent finalized decompositions."""
+        if self._hops is None:
+            return {"enabled": False}
+        doc = {"enabled": True}
+        doc.update(self._hops.snapshot(self.metrics))
+        return doc
+
+    def _on_hops(self, origin: int, direction: int, records,
+                 t_recv_ns: int) -> None:
+        """Transport reader-thread intake for HOPS frames (assigned as
+        ``transport.on_hops``): requests park on the follower half,
+        echoes on the leader half; both drain on the tick thread."""
+        h = self._hops
+        if h is None:
+            return
+        if direction == HOP_REQUEST:
+            h.recv_requests(origin, records, t_recv_ns)
+        else:
+            h.recv_echoes(origin, records, t_recv_ns)
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+        # Settle the pipeline: the pending tick's host work (WAL staging,
+        # fsync, sends, applies) runs here on the closing thread —
+        # single-writer ownership transfers exactly like the GC settle
+        # below — so nothing the device computed is lost on a graceful
+        # close and the durable tail matches the device tail on restart.
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            try:
+                self._host_phase(pending)
+            except Exception:
+                log.exception("node %d: pipeline drain failed on close",
+                              self.node_id)
+        if self._lat is not None:
+            # Final harvest: retired-but-unmerged spans land in the
+            # histograms before the registry goes quiet (spans still in
+            # flight stay un-counted — never a fabricated latency).
+            self._lat.harvest(self.metrics)
+        if self._hops is not None:
+            # Same rule for hop contexts: fold what settled, never
+            # fabricate segments for spans still in flight.
+            self._hops.fold(self.metrics)
+        if self._obsrv is not None:
+            self._obsrv.close()
+            self._obsrv = None
+        self.transport.close()
+        # Checkpoint workers drain their queue after _stop (no serialized
+        # temp file is stranded), then exit.
+        with self._ckpt_cv:
+            self._ckpt_cv.notify_all()
+        for t in self._ckpt_threads:
+            t.join(timeout=30)
+        # In-flight snapshot workers touch the store; they must finish (or
+        # observe _stop) before the native WAL handle is released.
+        with self._snap_cv:
+            self._snap_cv.notify_all()
+        for t in self._snap_threads:
+            t.join(timeout=10)
+        # Settle a pending three-phase GC: with the tick thread stopped,
+        # ownership transfers here (still single-writer).
+        if self._gc_thread is not None:
+            self._gc_thread.join(timeout=300)
+            if self._gc_thread.is_alive():
+                # The worker still holds the native handle: releasing it
+                # would be a use-after-free.  Leak the store (the WAL is
+                # crash-safe; recovery re-derives everything) and bail.
+                log.error("node %d: WAL GC worker failed to stop; leaking "
+                          "store handle", self.node_id)
+                self.profiler.close()
+                self.dispatcher.close()
+                return
+        if self._gc_phase == 2:
+            try:
+                if self.store.gc_finish() != 0:
+                    self.store.gc_abort()
+            except Exception:
+                self.store.gc_abort()
+        elif self._gc_phase != 0:
+            self.store.gc_abort()
+        self._gc_phase = 0
+        self.profiler.close()
+        self.dispatcher.close()
+        if self._host_pool is not None:
+            self._host_pool.shutdown(wait=True)
+            self._host_pool = None
+        self._fold_wal_stats()   # final engine-counter fold (short runs
+        self.store.close()       # never reach a 32-tick maintain pass)
+
+    def submit(self, group: int, payload: bytes,
+               tenant: Optional[str] = None) -> Future:
+        """Offer a command to the group's replicated log.  The returned
+        future completes with the machine's apply result (reference
+        RaftStub.submit -> Promise, command/RaftStub.java:65-74).
+
+        Refusals mirror the reference's taxonomy: NotLeader (redirect hint),
+        NotReady (leading but a majority of followers unhealthy —
+        Leader.isReady, Leader.java:52-64 -> NotReadyException,
+        RaftStub.java:84-87) and BusyLoop (bounded queues,
+        support/EventLoop.java:136-138).
+
+        Concurrency contract: ``h_role``/``h_ready``/``h_leader`` are
+        device mirrors refreshed once per tick and read here WITHOUT
+        synchronization (the reference instead pins the isReady check to
+        the group's event loop, Leader.java:52-64).  The race is bounded
+        and safe: a stale mirror can only mis-route a submission by one
+        tick — a wrongly-ACCEPTED command still commits only if the device
+        engine (the authority) sees this node as a ready leader when it
+        drains the queue, otherwise the queue is rejected with NotLeader on
+        the next tick (`_persist` rejection sweep); a wrongly-REFUSED
+        command just returns a retryable error to the client."""
+        from ..transport.codec import PayloadRun
+
+        sink = BatchSubmit(1, single=True)
+        fut = sink.future
+        err = self._refusal(group)
+        if err is not None:
+            fut.set_exception(err)
+            return fut
+        adm = self.admission
+        ra = adm.admit(1, tenant)
+        if ra is not None:
+            fut.set_exception(as_refusal(OverloadError(
+                f"group {group}: admission shed (overload)",
+                retry_after_s=ra)))
+            return fut
+        run = PayloadRun.single(0, payload)
+        with self._submit_lock:
+            if (int(self._queued_n[group]) >= self.group_queue_cap
+                    or self._queued_total
+                    >= self.total_queue_cap - self.busy_threshold):
+                fut.set_exception(as_refusal(BusyLoopError(
+                    f"group {group}: submission queue full",
+                    retry_after_s=adm.busy_retry_after())))
+                return fut
+            q = self._submissions.setdefault(group, deque())
+            b = _SubBatch(run, sink)
+            # LIFO under overload (deadline-aware: the freshest request is
+            # the likeliest to still be inside its deadline).  Never ahead
+            # of a partially-consumed head — its remaining entries keep
+            # their place, all other cross-batch order is free (promise
+            # ranges are registered per pop span, not by queue position).
+            if adm.lifo_now() and q and q[0].taken == 0:
+                q.appendleft(b)
+            else:
+                q.append(b)
+            self._queued_n[group] += 1
+            self._queued_total += 1
+            tr = self._lat
+            if tr is not None:
+                seq = tr.next_seq_w(1)
+                if tr.sampled(seq):
+                    sink.span = tr.make_span(seq, "w", 0)
+        return fut
+
+    def submit_batch(self, group: int, payloads,
+                     tenant: Optional[str] = None) -> Future:
+        """Offer many commands with ONE future resolving to the list of
+        apply results (in order).  Same refusal taxonomy as :meth:`submit`,
+        reported on the single future; one queue-capacity check and one
+        lock acquisition cover the whole batch.  If any command in the
+        batch fails (NotLeader on step-down, ObsoleteContext, snapshot
+        jump), the future raises :class:`BatchAbortedError`, whose
+        ``completed``/``results`` report exactly which prefix already
+        committed and applied — do NOT blindly resubmit the whole batch
+        (see the error's docstring for the client contract)."""
+        from ..transport.codec import PayloadRun
+
+        batch = BatchSubmit(len(payloads))
+        fut = batch.future
+        err = self._refusal(group)
+        if err is not None:
+            fut.set_exception(err)
+            return fut
+        if not payloads:
+            fut.set_result([])
+            return fut
+        adm = self.admission
+        ra = adm.admit(len(payloads), tenant)
+        if ra is not None:
+            fut.set_exception(as_refusal(OverloadError(
+                f"group {group}: admission shed (overload)",
+                retry_after_s=ra)))
+            return fut
+        run = PayloadRun.from_payloads(0, payloads)
+        with self._submit_lock:
+            n = len(payloads)
+            if (int(self._queued_n[group]) + n > self.group_queue_cap
+                    or self._queued_total + n
+                    > self.total_queue_cap - self.busy_threshold):
+                fut.set_exception(as_refusal(BusyLoopError(
+                    f"group {group}: submission queue full",
+                    retry_after_s=adm.busy_retry_after())))
+                return fut
+            q = self._submissions.setdefault(group, deque())
+            b = _SubBatch(run, batch)
+            if adm.lifo_now() and q and q[0].taken == 0:  # see submit()
+                q.appendleft(b)
+            else:
+                q.append(b)
+            self._queued_n[group] += n
+            self._queued_total += n
+            tr = self._lat
+            if tr is not None:
+                seq0 = tr.next_seq_w(n)
+                k = tr.first_in(seq0, n)
+                if k >= 0:
+                    batch.span = tr.make_span(seq0 + k, "w", k)
+        return fut
+
+    def submit_batch_many(self, groups, payloads) -> List[BatchSubmit]:
+        """Offer the SAME batch of commands to many groups at once (the
+        vectorized client entry — one arena build and one lock acquisition
+        for the whole fan-out; each group still gets its own BatchSubmit
+        with the full refusal taxonomy).  Returns the per-group handles;
+        read ``handle.future`` to await a group's results — the Future
+        (and its Condition) is allocated lazily on first access, so a
+        fire-and-forget driver feeding 100k groups per round never pays
+        for 100k Futures.  Refusals are recorded on the handle the same
+        lazy way (``handle.future`` raises them on ``result()``)."""
+        from ..transport.codec import PayloadRun
+
+        sinks: List[BatchSubmit] = []
+        n = len(payloads)
+        if n == 0:
+            for _ in groups:
+                sinks.append(BatchSubmit(0, eager=False))
+            return sinks
+        run = PayloadRun.from_payloads(0, payloads)
+        # Refusal prechecks read the tick-refreshed mirrors (same bounded
+        # one-tick race as submit/_refusal — see submit's docstring).
+        role, ready, active = self.h_role, self.h_ready, self.h_active
+        leader, qn = self.h_leader, self._queued_n
+        hg, bp = self._healthy_groups, self._io_backpressure
+        cap = self.group_queue_cap - n
+        tr = self._lat
+        adm = self.admission
+        with self._submit_lock:
+            headroom = (self.total_queue_cap - self.busy_threshold
+                        - self._queued_total)
+            for g in groups:
+                g = int(g)
+                sink = BatchSubmit(n, eager=False)
+                sinks.append(sink)
+                if hg is not None and not hg[g]:
+                    sink._refuse(as_refusal(UnavailableError(
+                        f"group {g}: WAL stripe quarantined after a "
+                        f"durability failure")))
+                    continue
+                if bp:
+                    sink._refuse(as_refusal(BusyLoopError(
+                        f"group {g}: storage backpressure (WAL out of "
+                        f"disk space)", retry_after_s=1.0)))
+                    continue
+                if not active[g]:
+                    sink._refuse(as_refusal(
+                        ObsoleteContextError(f"group {g} closed")))
+                    continue
+                if role[g] != LEADER:
+                    hint = int(leader[g])
+                    sink._refuse(as_refusal(NotLeaderError(
+                        g, None if hint == NIL else hint)))
+                    continue
+                if not ready[g]:
+                    sink._refuse(as_refusal(NotReadyError(
+                        f"group {g}: leader lacks a healthy majority")))
+                    continue
+                ra = adm.admit(n)
+                if ra is not None:
+                    sink._refuse(as_refusal(OverloadError(
+                        f"group {g}: admission shed (overload)",
+                        retry_after_s=ra)))
+                    continue
+                if qn[g] > cap or headroom < n:
+                    sink._refuse(as_refusal(BusyLoopError(
+                        f"group {g}: submission queue full",
+                        retry_after_s=adm.busy_retry_after())))
+                    continue
+                self._submissions.setdefault(g, deque()).append(
+                    _SubBatch(run, sink))
+                qn[g] += n
+                self._queued_total += n
+                headroom -= n
+                if tr is not None:
+                    # Seqs are allocated per ACCEPTED group only (the
+                    # sampled set is deterministic over accepted
+                    # submissions); first_in is O(1), so the 100k-group
+                    # fan-out never loops to decide.
+                    seq0 = tr.next_seq_w(n)
+                    k = tr.first_in(seq0, n)
+                    if k >= 0:
+                        sink.span = tr.make_span(seq0 + k, "w", k)
+        return sinks
+
+    def read(self, group: int, payload: bytes,
+             tenant: Optional[str] = None) -> Future:
+        """Linearizable read: resolve with the machine's ``read(payload)``
+        result (or, for machines without the read SPI, the quorum-confirmed
+        ReadIndex itself) WITHOUT appending to the log.
+
+        Protocol (ReadIndex, Raft dissertation §6.4, vectorized in
+        core/step.py phase 8b): the device stamps the batch with the
+        leader's commit index, confirms leadership via a majority of
+        same-term heartbeat acks (receipt-anchored when cfg.read_lease —
+        often zero extra round trips — else echo-anchored, one round
+        trip), and the host serves it once the apply frontier covers the
+        stamp.  Every failure of a read future is a MARKED refusal
+        (api/anomaly.py): a read never enters any log, so retrying it
+        elsewhere is always safe — unlike submit's accept-abort ambiguity.
+        """
+        return self.read_batch(group, [payload], _single=True,
+                               tenant=tenant)
+
+    def read_batch(self, group: int, payloads,
+                   _single: bool = False,
+                   tenant: Optional[str] = None) -> Future:
+        """Offer many linearizable queries as ONE read batch with one
+        future resolving to the list of results in order.  The whole batch
+        shares one ReadIndex barrier — the amortization the read plane
+        exists for.  Same refusal taxonomy as :meth:`submit_batch`, but
+        every refusal/abort is retry-safe (see :meth:`read`)."""
+        sink = BatchSubmit(len(payloads), single=_single)
+        fut = sink.future
+        err = self._refusal(group)
+        if err is not None:
+            fut.set_exception(err)
+            return fut
+        if not payloads:
+            fut.set_result([])
+            return fut
+        n = len(payloads)
+        adm = self.admission
+        ra = adm.admit(n, tenant)
+        if ra is not None:
+            fut.set_exception(as_refusal(OverloadError(
+                f"group {group}: admission shed (overload)",
+                retry_after_s=ra)))
+            return fut
+        with self._read_lock:
+            if int(self._read_queued_n[group]) + n > self.group_queue_cap:
+                fut.set_exception(as_refusal(BusyLoopError(
+                    f"group {group}: read queue full",
+                    retry_after_s=adm.busy_retry_after())))
+                return fut
+            self._reads_waiting.setdefault(group, deque()).append(
+                _ReadBatch(list(payloads), sink, time.monotonic()))
+            self._read_queued_n[group] += n
+            tr = self._lat
+            if tr is not None:
+                seq0 = tr.next_seq_r(n)
+                k = tr.first_in(seq0, n)
+                if k >= 0:
+                    sp = tr.make_span(seq0 + k, "r", k)
+                    if sp is not None:
+                        sp.group = group
+                    sink.span = sp
+        return fut
+
+    def _refusal(self, group: int) -> Optional[Exception]:
+        """The submission refusal taxonomy, shared by submit/submit_batch
+        (reference: RaftStub.process checks, command/RaftStub.java:79-91).
+        All are marked pre-log refusals: nothing was enqueued, so a retry
+        elsewhere can never double-apply (api/anomaly.py as_refusal)."""
+        if self._healthy_groups is not None \
+                and not self._healthy_groups[group]:
+            # Typed fast-fail (UnavailableError subclasses
+            # StorageFaultError): the lane is fail-stop silent, so the
+            # client should route around this node NOW instead of riding
+            # a future to its timeout.
+            return as_refusal(UnavailableError(
+                f"group {group}: WAL stripe quarantined after a "
+                f"durability failure — retry against the new leader"))
+        if self._io_backpressure:
+            return as_refusal(BusyLoopError(
+                f"group {group}: storage backpressure (WAL out of "
+                f"disk space)", retry_after_s=1.0))
+        if not self.h_active[group]:
+            return as_refusal(ObsoleteContextError(f"group {group} closed"))
+        if self.h_role[group] != LEADER:
+            hint = int(self.h_leader[group])
+            ev = self._evacuated.get(group)
+            if ev is not None and self.ticks < ev[1]:
+                # Health-driven hand-off: the typed refusal carries the
+                # evacuation target so clients re-point in one hop even
+                # before the leader mirror catches up (api/anomaly.py).
+                return as_refusal(LeadershipEvacuatedError(
+                    group, None if hint == NIL else hint, target=ev[0]))
+            return as_refusal(
+                NotLeaderError(group, None if hint == NIL else hint))
+        if not self.h_ready[group]:
+            return as_refusal(NotReadyError(
+                f"group {group}: leader lacks a healthy majority"))
+        return None
+
+    def is_leader(self, group: int) -> bool:
+        return bool(self.h_role[group] == LEADER)
+
+    def is_ready(self, group: int) -> bool:
+        """Leading AND a majority of peers healthy (reference
+        Leader.isReady, Leader.java:52-64)."""
+        return bool(self.h_ready[group])
+
+    def leader_hint(self, group: int) -> Optional[int]:
+        h = int(self.h_leader[group])
+        return None if h == NIL else h
+
+    # ------------------------------------------------------------- tick loop
+
+    def _run(self, interval: float) -> None:
+        while not self._stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                self.tick()
+            except Exception:
+                log.exception("node %d tick failed", self.node_id)
+            dt = time.perf_counter() - t0
+            if dt < interval:
+                time.sleep(interval - dt)
+
+    def set_active(self, group: int, active: bool,
+                   purge: bool = False) -> None:
+        """Open or close a group lane (thread-safe; takes effect next tick).
+        Closing makes the lane inert — no timers, no RPCs, no submissions
+        (reference exitContext, context/ContextManager.java:126-133).
+        ``purge=True`` (destroy) additionally wipes the lane's durable log,
+        machine state, snapshots and device lanes so a future group can
+        reuse it from scratch (reference destroyContext,
+        context/ContextManager.java:139-167)."""
+        with self._lifecycle_lock:
+            self._lifecycle.append((group, active, purge))
+
+    def is_active(self, group: int) -> bool:
+        return bool(self.h_active[group])
+
+    def activate_lane(self, lane: int, gen: int) -> None:
+        """Activate a lane for incarnation ``gen``: if the lane last served
+        an older incarnation, purge it first so the new group starts from
+        scratch (covers a destroy this node never saw)."""
+        known = self._lane_gens.get(str(lane), 0)
+        if gen > known:
+            if known > 0 or self.store.tail(lane) > 0 \
+                    or self.store.stable(lane) is not None:
+                self.set_active(lane, False, purge=True)
+            self._lane_gens[str(lane)] = gen
+            tmp = self._lane_gens_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(self._lane_gens, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._lane_gens_path)
+        self.set_active(lane, True)
+
+    def profile_ticks(self, log_dir: str, n_ticks: int = 64) -> None:
+        """Capture the next ``n_ticks`` ticks to a torch profiler trace."""
+        self.profiler.arm(log_dir, n_ticks)
+
+    def tick(self) -> StepInfo:
+        """Advance the node one tick and return its StepInfo.
+
+        Serial mode (``pipeline=False``): the classic strictly ordered
+        tick — scan, wait, persist+fsync, send, apply, maintain — nothing
+        overlaps.
+
+        Pipelined mode (the durable pipeline): this tick's fused scan is
+        DISPATCHED first (asynchronous launch — no blocking transfer), the
+        PREVIOUS tick's host phase (WAL staging, the fsync barrier,
+        outbox release, applies, read serving, maintenance) runs while
+        the device computes, and only then are this tick's results
+        fetched.  Safety holds because (a) a tick's outbox and futures
+        are released only inside its own host phase, strictly after its
+        fsync barrier — ack-after-fsync, exactly as serial — and (b) the
+        scan's commit quorum counts our own match only up to the FSYNCED
+        durable tail fed through ``HostInbox.durable_tail``, so a scan
+        racing the previous tick's fsync can never self-ack an un-fsynced
+        range into a commit.  Pipeline barriers (lifecycle changes,
+        snapshot installs) drain the pending tick first; both are rare.
+        """
+        _tick_t0 = time.perf_counter()
+        with self.profiler.step(self.ticks):
+            ctx = self._dispatch()
+            if self.pipeline:
+                prev, self._pending = self._pending, None
+                try:
+                    if prev is not None:
+                        self._host_phase(prev, defer_send=True)
+                finally:
+                    # The dispatched tick must never be dropped: even if
+                    # the previous host phase failed (the loop in _run
+                    # keeps ticking through exceptions), fetch and stash
+                    # it so its appends are persisted next tick —
+                    # otherwise the device state advances past entries
+                    # whose payloads the WAL never saw.
+                    self._fetch(ctx)
+                    self._pending = ctx
+                    # Eager leader sends: THIS tick's AE/heartbeat frames
+                    # leave now, ahead of this tick's own fsync (which
+                    # runs next tick).  Safe because commit counts our
+                    # self-match only up to the fsynced durable tail
+                    # (HostInbox.durable_tail); AE-responses, votes and
+                    # client futures stay strictly behind the fsync in
+                    # the deferred host phase.  Pending is stashed FIRST
+                    # so a send failure can't drop the tick.
+                    self._eager_send(ctx)
+                    self._flush_sends()
+            else:
+                self._fetch(ctx)
+                self._host_phase(ctx)
+        self.metrics.observe("tick_latency_s",
+                             time.perf_counter() - _tick_t0)
+        self._admission_tick(time.perf_counter() - _tick_t0)
+        # Txn plane: fold driver/resolver counters and (every
+        # sweep_every ticks) resolve expired write-intents on groups
+        # this node leads (runtime/txn.py — coordinator timeouts are
+        # driven off this tick loop, not off any client thread).
+        self.txn.tick(self)
+        if self._lat is not None:
+            # Merge retired spans from every thread's ring into the
+            # shared histograms — tick thread only, so the registry
+            # keeps its single-writer contract (utils/metrics.py).
+            self._lat.harvest(self.metrics)
+        if self._hops is not None:
+            # Pair echoes with pending contexts and finalize settled
+            # spans — after harvest so a span retired this tick already
+            # carries its outcome.
+            self._hops.fold(self.metrics)
+        # Health scorecards last: the fold above just refreshed the hop
+        # histograms this tick's peer scoring reads.
+        self._health_tick()
+        self.profiler.after_tick()
+        return ctx.info
+
+    def _admission_tick(self, tick_s: float) -> None:
+        """Per-tick admission-controller feed + metrics fold (tick thread
+        only — the registry's single-writer contract).  The sojourn
+        sample was stashed by this tick's ``_persist_prepare`` pop; when
+        nothing popped AND the queues are empty, 0.0 is fed (the queue
+        drained — the strongest good signal); a non-empty queue with no
+        pop carries no information (None)."""
+        adm = self.admission
+        if not adm.enabled:
+            return
+        adm.note_tick(tick_s)
+        d, self._adm_delay = self._adm_delay, None
+        if d is None and self._queued_total == 0:
+            d = 0.0
+        adm.note_delay(d)
+        if d is not None:
+            self.metrics.observe("admission_queue_delay_s", d)
+        m, folded = self.metrics, self._adm_fold
+        cur = (adm.admitted, adm.shed, adm.shed_tenant, adm.expired)
+        for i, name in enumerate(("admission_admitted", "admission_shed",
+                                  "admission_shed_tenant",
+                                  "admission_expired")):
+            delta = cur[i] - folded[i]
+            if delta:
+                m[name] += delta
+                folded[i] = cur[i]
+        m.gauge("admission_level", round(adm.level, 4))
+        m.gauge("admission_shedding", 1 if adm.overloaded else 0)
+
+    # ------------------------------------------------- tick: health plane
+
+    def _health_tick(self) -> None:
+        """Per-tick gray-failure scorecard feed + leadership evacuation
+        (tick thread only).  The registry folds this tick's self signals
+        (slow-I/O watchdog, stripe quarantine, ENOSPC backpressure,
+        reconnects, admission shed level) and the hop histograms' per-
+        peer windowed deltas; when the SELF score crosses the degraded
+        threshold, up to ``RAFT_EVAC_GROUPS`` led groups are handed to
+        their most caught-up non-degraded voter via the §3.10 transfer
+        plane — proactive step-down while this node can still replicate,
+        instead of waiting to become the fleet's slowest quorum member.
+        Rate-limited by ``RAFT_EVAC_COOLDOWN_TICKS`` so a flapping score
+        cannot thrash leadership."""
+        h = self.health
+        if h is None:
+            return
+        adm = self.admission
+        h.ingest(self.ticks, self.metrics,
+                 io_slow=self._io_slow,
+                 poisoned_stripes=len(self._poisoned_stripes),
+                 backpressure=self._io_backpressure,
+                 admission_level=adm.level if adm.enabled else 0.0)
+        # Contact feed from the device qc lanes (max over groups -> [P]
+        # last-heard ticks), at an admin cadence like catch_up_gap.
+        if self.state.qc is not None and self.ticks % 16 == 0:
+            heard = _host_lane(self.state.qc.heard)
+            h.note_contact(heard.max(axis=0))
+        # Expired evacuation markers age out (the fleet has re-pointed).
+        for g in [g for g, (_, exp) in self._evacuated.items()
+                  if self.ticks >= exp]:
+            del self._evacuated[g]
+        bad = h.degraded_peers()
+        m = self.metrics
+        m.gauge("health_self_score", round(h._decayed(h.self_score), 4))
+        m.gauge("health_self_degraded", int(h.self_degraded()))
+        m.gauge("health_degraded_peers", len(bad))
+        if not h.self_degraded() or self.ticks < self._evac_next_ok:
+            return
+        led = np.nonzero(self.h_role == LEADER)[0]
+        if led.size == 0:
+            return
+        from ..core.types import conf_new_of, conf_voters_of
+
+        moved = 0
+        for g in led:
+            g = int(g)
+            if moved >= self._evac_groups_per_round:
+                break
+            with self._member_lock:
+                busy = g in self._xfer_pending
+            if busy or g in self._evacuated:
+                continue
+            w = int(self.h_conf_word[g])
+            vmask = conf_voters_of(w) | conf_new_of(w)
+            cand = [p for p in range(self.cfg.n_peers)
+                    if ((vmask >> p) & 1) and p != self.node_id
+                    and p not in bad]
+            if not cand:
+                continue   # nowhere healthy to go — stay and serve
+            target = min(cand, key=lambda p: self.catch_up_gap(g, p))
+            fut = self.transfer_leadership(g, target)
+            if fut.done() and fut.exception() is not None:
+                continue   # refused (raced a role change) — not an evac
+            self._evacuated[g] = (target,
+                                  self.ticks + 8 * self.cfg.election_ticks)
+            m["leader_evacuations"] += 1
+            h.note_evacuation(g, target)
+            moved += 1
+        if moved:
+            self._evac_next_ok = self.ticks + self._evac_cooldown
+            log.warning(
+                "node %d degraded (score %.2f): evacuated %d group(s)",
+                self.node_id, h._decayed(h.self_score), moved)
+
+    def health_snapshot(self) -> dict:
+        """The /healthz ``peers`` block (runtime/obsrv.py): per-peer and
+        self scorecards, degraded flags, contact ages, evacuation audit.
+        Snapshot reads only — safe off the tick thread (same contract as
+        /metrics)."""
+        if self.health is None:
+            return {"enabled": False}
+        doc = {"enabled": True}
+        doc.update(self.health.snapshot())
+        doc["evacuated_groups"] = {
+            str(g): {"target": t, "expiry_tick": e}
+            for g, (t, e) in sorted(self._evacuated.items())}
+        return doc
+
+    # ------------------------------------------------------- tick: dispatch
+
+    def _dispatch(self) -> _TickCtx:
+        cfg = self.cfg
+        G = cfg.n_groups
+
+        # -- 0. group lifecycle ----------------------------------------------
+        with self._lifecycle_lock:
+            changes, self._lifecycle = self._lifecycle, []
+        with self._snap_lock:
+            fetched, self._snap_fetched = self._snap_fetched, []
+        if (changes or fetched) and self._pending is not None:
+            # Pipeline barrier: purges and snapshot installs move the WAL
+            # floor / wipe lanes, which is only sound once every device-
+            # computed append is persisted (the serial invariant).  Both
+            # are rare catch-up/admin events; one overlap window is lost.
+            prev, self._pending = self._pending, None
+            self._host_phase(prev)
+        if changes:
+            act = _host_lane(self.state.active)
+            purged = []
+            hg = self._healthy_groups
+            for g, a, purge in changes:
+                act[g] = a
+                if not a:
+                    # Strand nothing: queued-but-unaccepted submissions AND
+                    # registered promises both fail out when a lane closes.
+                    # A QUARANTINE-driven close rejects with the typed
+                    # Unavailable refusal (queued work never reached any
+                    # log — retry-safe elsewhere); promise aborts for that
+                    # case already fired in _quarantine_stripes with the
+                    # unmarked outcome-unknown StorageFaultError.
+                    if hg is not None and not hg[g]:
+                        exc_f = lambda: UnavailableError(
+                            f"group {g}: WAL stripe quarantined after a "
+                            f"durability failure — retry against the new "
+                            f"leader")
+                    else:
+                        exc_f = lambda: ObsoleteContextError(
+                            f"group {g} closed")
+                    self.dispatcher.abort_promises(
+                        g, ObsoleteContextError(f"group {g} closed"))
+                    self._reject_submissions(g, exc_f())
+                    # Reads too — including barrier-confirmed ones: the
+                    # machine they would query is going away.
+                    self._reject_reads(g, exc_f(), drop_released=True)
+                    self._reject_membership(g, exc_f())
+                if purge:
+                    purged.append(g)
+            (dev,) = _to_device([{"active": act}], self.device)
+            self.state = self.state.replace(active=dev["active"])
+            self.h_active = act
+            if purged:
+                self._purge_lanes(purged)
+
+        # -- 1. host inbox ---------------------------------------------------
+        with self._submit_lock:
+            # One vector op over the entry-count mirror — the dict walk
+            # was O(groups-with-queues) per tick.  Offers already riding
+            # the pending (un-persisted) tick are subtracted: the device
+            # must never be offered the same queued entry twice, or the
+            # two accepts would outrun the host queues.
+            submit_n = np.minimum(
+                np.maximum(self._queued_n - self._inflight_submit, 0),
+                cfg.max_submit).astype(np.int32)
+        # Read plane: promote one waiting batch per group into the offer
+        # slot; an unstamped offer (no free device slot / not leader yet)
+        # simply stays offered and is re-offered next tick.  An offer
+        # riding the pending tick is masked out until that tick's harvest
+        # (a batch must reach the device exactly once per stamp attempt).
+        read_n = np.zeros(G, np.int32)
+        with self._read_lock:
+            for g, q in self._reads_waiting.items():
+                if q and g not in self._reads_offered \
+                        and not self._inflight_read[g]:
+                    b = q.popleft()
+                    self._read_queued_n[g] -= len(b.payloads)
+                    self._reads_offered[g] = b
+            for g, b in self._reads_offered.items():
+                if not self._inflight_read[g]:
+                    read_n[g] = len(b.payloads)
+        # Wall-clock pause detection (HostInbox.read_veto contract): a gap
+        # beyond read_fresh_ticks tick intervals invalidates stored lease
+        # evidence AND whatever acks queued in the inbox across the pause.
+        # The veto is HELD for read_fresh_ticks consecutive ticks, not one:
+        # pause-era acks still sitting in socket buffers drain through the
+        # reader threads into the accumulator over the FOLLOWING ticks too,
+        # and a single-tick veto would let receipt-anchored lease evidence
+        # resurrect from them one tick later (the tick clock did not
+        # advance during the pause, so the freshness bound alone cannot
+        # reject them).
+        wall = time.monotonic()
+        if self._tick_interval and self._last_tick_wall is not None:
+            gap = wall - self._last_tick_wall
+            if gap > self._tick_interval * max(cfg.read_fresh_ticks, 2):
+                self._read_veto_hold = max(cfg.read_fresh_ticks, 2)
+                self.metrics["read_vetoes"] += 1
+        read_veto = self._read_veto_hold > 0
+        if read_veto:
+            self._read_veto_hold -= 1
+        self._last_tick_wall = wall
+        snap_done = np.zeros(G, bool)
+        snap_idx = np.zeros(G, np.int32)
+        snap_term = np.zeros(G, np.int32)
+        snap_conf = np.zeros(G, np.int32)
+        for g, idx, term, cw in self._install_snapshots(fetched):
+            snap_done[g] = True
+            snap_idx[g] = idx
+            snap_term[g] = term
+            snap_conf[g] = cw
+        # Membership plane: re-offer every pending change/transfer until
+        # the device latches it (intake is idempotent — an accepted change
+        # equals the active config or is fenced as in-flight, so a
+        # duplicate offer can never append a second entry).
+        conf_voters = np.zeros(G, np.int32)
+        conf_learners = np.zeros(G, np.int32)
+        xfer_target = np.full(G, NIL, np.int32)
+        with self._member_lock:
+            for g, ent in self._conf_pending.items():
+                conf_voters[g] = ent[0]
+                conf_learners[g] = ent[1]
+            for g, ent in self._xfer_pending.items():
+                xfer_target[g] = ent[0]
+        # Durability feedback (pipelined mode): the fsynced tail per
+        # group — every completed host phase ends with its fsync barrier,
+        # so the mirror is durable by construction at dispatch time.  The
+        # scan clamps its own commit-quorum match to it (core/step.py
+        # phase 10), making ack-after-fsync a kernel invariant rather
+        # than a host-ordering convention.
+        durable = None
+        if self.pipeline or self._acked_tail is not None:
+            # Serial mode normally needs no clamp (the barrier strictly
+            # precedes the next dispatch) — but after a FAILED barrier
+            # the staged mirror is ahead of disk, so the confirmed-tail
+            # clamp (_acked_tail) is fed in serial mode too.
+            src = self._durable_tail_m if self._acked_tail is None \
+                else self._acked_tail
+            durable = np.minimum(src, I32_SAFE_MAX).astype(np.int32)
+        host_lanes = dict(
+            submit_n=submit_n,
+            snap_done=snap_done,
+            snap_idx=snap_idx,
+            snap_term=snap_term,
+            snap_conf=snap_conf,
+            compact_to=self._compact_grant.astype(np.int32),
+            conf_voters=conf_voters,
+            conf_learners=conf_learners,
+            xfer_target=xfer_target,
+            read_n=read_n,
+            read_veto=np.asarray(read_veto),
+        )
+        if durable is not None:
+            host_lanes["durable_tail"] = durable
+        self._compact_grant = np.zeros(G, np.int64)
+
+        # -- 2. network inbox ------------------------------------------------
+        arrays, staged_payloads = self.acc.drain()
+        host_dev, inbox_dev = _to_device([host_lanes, arrays], self.device)
+        host = HostInbox(**host_dev)
+        inbox = Messages(**inbox_dev)
+
+        # -- 3. device step (async dispatch: no transfer, no block) ----------
+        self.state, outbox, info = node_step(cfg, self.state, inbox, host)
+
+        ctx = _TickCtx()
+        ctx.submit_n, ctx.read_n = submit_n, read_n
+        ctx.staged_payloads, ctx.arrays = staged_payloads, arrays
+        ctx.info, ctx.outbox = info, outbox
+        ctx.term, ctx.voted = self.state.term, self.state.voted_for
+        ctx.role, ctx.leader = self.state.role, self.state.leader_id
+        ctx.commit = self.state.commit
+        ctx.base, ctx.base_term = self.state.log.base, self.state.log.base_term
+        ctx.heat = self.state.heat
+        ctx.deferred_ae = None
+        self._inflight_submit = self._inflight_submit + submit_n
+        self._inflight_read = self._inflight_read + read_n
+        return ctx
+
+    # --------------------------------------------------------- tick: fetch
+
+    def _fetch(self, ctx: _TickCtx) -> None:
+        """Pull the dispatched scan's results to the host (the pipeline's
+        only blocking point) and refresh the per-tick mirrors.  In
+        pipelined mode this runs AFTER the previous tick's host phase, so
+        the wait here is whatever device time the host work did not
+        cover."""
+        cfg = self.cfg
+        _w0 = time.perf_counter()
+        # One transfer for everything the host needs this tick (the heat
+        # lanes ride it as a None subtree when cfg.heat is off).
+        (h_info, h_out, h_term, h_voted, h_role, h_leader, h_commit, h_base,
+         h_base_term, h_heat) = _to_host(
+            (ctx.info, ctx.outbox, ctx.term, ctx.voted, ctx.role,
+             ctx.leader, ctx.commit, ctx.base, ctx.base_term, ctx.heat))
+        self.metrics.observe("tick_stage_scan_wait_s",
+                             time.perf_counter() - _w0)
+        ctx.info, ctx.outbox = h_info, h_out
+        ctx.term, ctx.voted, ctx.role = h_term, h_voted, h_role
+        ctx.leader, ctx.commit = h_leader, h_commit
+        ctx.base, ctx.base_term = h_base, h_base_term
+
+        if cfg.debug_checks:
+            from ..core.step import raise_debug_violations
+            raise_debug_violations(h_info, f"node {self.node_id}")
+
+        # i32 lane-overflow guard (core/types.py I32_SAFE_MAX): indices,
+        # terms and the tick clock are int32 on device by design — fail
+        # loudly with ~2^20 of headroom rather than wrap silently.  The
+        # long-horizon story is snapshots + lane purge (index resets), not
+        # wider lanes.
+        hi_lane = max(int(np.asarray(h_info.log_tail).max(initial=0)),
+                      int(h_term.max(initial=0)), self.ticks)
+        if hi_lane >= I32_SAFE_MAX:
+            raise OverflowError(
+                f"node {self.node_id}: an int32 engine lane reached "
+                f"{hi_lane} (>= I32_SAFE_MAX {I32_SAFE_MAX}); a group "
+                "needs a snapshot + lane purge before its log index/term "
+                "wraps (see core/types.py)")
+
+        old_role = self.h_role
+        self.h_role, self.h_leader = h_role, h_leader
+        self.h_commit, self.h_base = h_commit, h_base
+        self.h_term = h_term
+        self.h_ready = np.asarray(h_info.ready)
+        self.metrics["elections"] += int(
+            ((h_role == LEADER) & (old_role != LEADER)).sum())
+        # Leadership lost: abort outstanding client promises BEFORE any
+        # apply could complete them with a different command's result at
+        # the same index (reference abortPromise on role change,
+        # context/RaftContext.java:165-187).  The command may still commit
+        # cluster-wide — NotLeader tells the client to re-check, the
+        # standard Raft client contract.
+        for g in np.nonzero((old_role == LEADER) & (h_role != LEADER))[0]:
+            g = int(g)
+            self.dispatcher.abort_promises(
+                g, NotLeaderError(g, self.leader_hint(g)))
+            self._reject_submissions(g)
+            # Un-served reads fail as RETRY-SAFE refusals (they never
+            # entered the log); batches that already passed their barrier
+            # (RELEASED) stay — a confirmed ReadIndex remains a valid
+            # linearization point under any later leadership.
+            self._reject_reads(g)
+
+        # Membership plane: refresh config mirrors, settle pending
+        # change/transfer futures, fold the tick's counters.
+        self._harvest_membership(h_info, h_role)
+
+        # -- flight-recorder drain -------------------------------------------
+        # Opt-in with the recorder itself: decoded events feed per-group
+        # timelines (HTTP /timeline) and the labeled metrics aggregate
+        # counters cannot express (elections by cause, leader churn).
+        # The cheap [G] event-count lane is pulled first; the full rings
+        # (and the per-moved-group decode) transfer only on ticks where
+        # something actually recorded — a quiet node pays one [G] pull.
+        # NOTE this host drain cost is NOT part of the BENCH_TRACE A/B
+        # (that measures the fused scan); it scales with groups-moved per
+        # tick, like every other host-side per-group path here.
+        if cfg.trace_depth:
+            h_trn = _host_lane(self.state.trace.n)
+            if self.tracelog.moved(h_trn):
+                (h_trace,) = _to_host((self.state.trace,))
+                for k, v in self.tracelog.ingest(h_trace).items():
+                    if v:
+                        self.metrics[k] += v
+
+        # -- heat drain ------------------------------------------------------
+        # The device heat lanes (cumulative per-group activity) fold into
+        # the decaying registry: one numpy delta against the mirror, a
+        # counter fold, and the active-set gauge.  Cumulative lanes mean
+        # a skipped drain (storage-fault tick) loses nothing.
+        if self.heat is not None and h_heat is not None:
+            d_app, d_sent, d_com, d_rd = self.heat.ingest(
+                self.ticks, h_heat.appended, h_heat.sent,
+                h_heat.commits, h_heat.reads)
+            m = self.metrics
+            if d_app:
+                m["heat_appended"] += d_app
+            if d_sent:
+                m["heat_sent"] += d_sent
+            if d_com:
+                m["heat_commits"] += d_com
+            if d_rd:
+                m["heat_reads"] += d_rd
+            m.gauge("heat_active_set", self.heat.active_set_size())
+
+        # -- CheckQuorum fold ------------------------------------------------
+        # Device 6c step-downs (a leader lost voter-quorum contact) and
+        # the lease reads they vetoed, folded into counters so a gray
+        # failure is visible on the ordinary /metrics page.  None
+        # subtrees when cfg.check_quorum is off.
+        if h_info.cq_stepdown is not None:
+            n_down = int(np.asarray(h_info.cq_stepdown).sum())
+            n_veto = int(np.asarray(h_info.cq_veto).sum())
+            if n_down:
+                self.metrics["checkquorum_stepdowns"] += n_down
+            if n_veto:
+                self.metrics["lease_vetoes"] += n_veto
+
+        self.ticks += 1
+        self.metrics.gauge("groups_active", int(self.h_active.sum()))
+        self.metrics.gauge(
+            "groups_led", int((h_role == LEADER).sum()))
+        # Empty-payload short-circuits (machine/spi.py applies_empty
+        # opt-in): nonzero here explains a last_applied that lags the
+        # commit frontier without digging through warn-once logs.
+        skips = getattr(self.dispatcher, "empty_skips", 0)
+        if skips:
+            self.metrics.gauge("empty_apply_skips", int(skips))
+
+    # ---------------------------------------------------- tick: host phase
+
+    def _host_phase(self, ctx: _TickCtx, defer_send: bool = False) -> None:
+        """One fetched tick's host work: WAL staging, THE fsync barrier,
+        outbox release, applies + future completion, read serving,
+        maintenance.  Everything that acknowledges the tick runs here,
+        strictly after its barrier — in pipelined mode this whole phase
+        overlaps the next tick's device scan.
+
+        ``defer_send``: pack the outbox but HOLD the per-peer sections in
+        ``_held_sections`` instead of flushing frames — the pipelined
+        tick() flushes exactly once per wall tick, after the eager AE
+        pack, so each peer receives ONE combined slice per tick (the
+        inbox accumulator drains one slice per source per tick).
+
+        With ``host_workers > 1`` the phase fans out across the striped
+        worker pool (``_host_phase_striped``); membership-config ticks
+        fall back to the serial path.
+
+        Storage faults surface here: a failed durability barrier
+        (WalSyncError / WalNoSpace from the store) aborts the rest of
+        the phase — nothing past the barrier (sends, future
+        completions, reads) runs for this tick — and feeds the
+        failure-response policy in ``_storage_fault``.  ``pre_tail``
+        snapshots the durable-tail mirror BEFORE any staging so the
+        policy knows exactly which per-group tails a failed barrier
+        left unconfirmed."""
+        pre_tail = self._durable_tail_m.copy()
+        try:
+            try:
+                if self._native_host and not self._poisoned_stripes:
+                    self._host_phase_native(ctx, defer_send)
+                elif self._w_eff > 1:
+                    self._host_phase_striped(ctx, defer_send)
+                else:
+                    self._host_phase_serial(ctx, defer_send)
+            except (WalNoSpace, WalSyncError) as e:
+                self._storage_fault(e, pre_tail)
+        finally:
+            # This tick's offers are settled even on failure: leaking the
+            # inflight counts would mask those groups from every future
+            # dispatch (queued commands never re-offered, futures hung).
+            # A mid-persist failure can instead re-offer an entry the
+            # device already accepted — a client-retry-style duplicate,
+            # strictly better than permanent starvation.
+            self._inflight_submit = self._inflight_submit - ctx.submit_n
+            self._inflight_read = self._inflight_read - ctx.read_n
+
+    def _lat_stamp(self, phase: int) -> None:
+        """Stamp one lifecycle phase on every span the device accepted
+        this tick (populated by _persist_prepare's submission pop; tick /
+        host-phase thread only).  One is-None-cheap loop over at most a
+        handful of sampled spans."""
+        for sp in self._lat_tick:
+            sp.mark(phase)
+
+    def _hops_scan(self, ctx: _TickCtx) -> None:
+        """Detect which peers' AE frames this tick cover a tracked
+        sampled span and queue hop requests for them; the records ride
+        the next per-peer flush.  Must run AFTER _persist_prepare (which
+        registers this tick's spans) — the AE frame carrying a freshly
+        appended entry is in THIS tick's outbox, and once followers ack
+        it no later frame ever covers that index again.  O(tracked
+        spans); a node with no live spans pays one attribute check."""
+        if self._hops is not None:
+            out = ctx.outbox
+            self._hops.scan_outbox(np.asarray(out.ae_valid),
+                                   np.asarray(out.ae_prev_idx),
+                                   np.asarray(out.ae_n))
+
+    def _host_phase_serial(self, ctx: _TickCtx, defer_send: bool) -> None:
+        G = self.cfg.n_groups
+        _t0 = time.perf_counter()
+        # -- 4. persistence barrier ------------------------------------------
+        prep = self._persist_prepare(
+            ctx.info, ctx.term, ctx.voted, ctx.leader, ctx.base,
+            ctx.base_term, ctx.staged_payloads, ctx.arrays, ctx.submit_n)
+        # NOTE: staging is NOT masked while stripes are quarantined — a
+        # poisoned engine only buffers (its flush/fsync never run again),
+        # and skipping span-build would drop device-accepted sinks before
+        # they register as promises (hung futures).  The carve-out happens
+        # at the barrier (_barrier) and at outbox packing (silence).
+        need_sync = self._persist_stage(prep)
+        self._sweep_rejections(prep)
+        self._hops_scan(ctx)
+        ctx.staged_payloads = ctx.arrays = None   # drop frame pins early
+        _t1 = time.perf_counter()
+        if self._lat_tick:
+            self._lat_stamp(STAGED)
+        if self._hops is not None:
+            self._hops.fold_foreign(self._durable_tail_m, fsynced=False)
+        if need_sync or self._sync_pending:
+            self._barrier()     # THE durability barrier
+            self._barrier_ok()
+        _t2 = time.perf_counter()
+        if self._lat_tick:
+            self._lat_stamp(FSYNCED)
+        if self._hops is not None:
+            # The fsynced stamp sits strictly after _barrier_ok(): a
+            # storage-fault abort above means an unsynced tail never
+            # produces a durability echo.
+            self._hops.fold_foreign(self._durable_tail_m, fsynced=True)
+        self._watch_io(_t2 - _t1)
+
+        # -- 5. release outbox (only ever after the barrier) -----------------
+        held = self._stash_outbox_sections(ctx.outbox,
+                                           deferred=ctx.deferred_ae)
+        for p, secs in held.items():
+            self._held_sections.setdefault(p, []).extend(secs)
+        if not defer_send:
+            self._flush_sends()
+        _t3 = time.perf_counter()
+        if self._lat_tick:
+            self._lat_stamp(SENT)
+
+        # -- 6. applies ------------------------------------------------------
+        if self._lat is not None:
+            # Commit stamps strictly precede apply/ack stamps: advance()
+            # completes promises (and the traced batch's ack) below.
+            self._lat.mark_committed(ctx.commit)
+        before = self.dispatcher.applied_frontier(G)
+        self.dispatcher.advance(ctx.commit)
+        after = self.dispatcher.applied_frontier(G)
+        self.metrics["applies"] += int((after - before).sum())
+        self.metrics["commits"] = int(ctx.commit.astype(np.int64).sum())
+        _t4 = time.perf_counter()
+
+        # -- 6b. read plane: stamped/released bookkeeping + serving ----------
+        self._harvest_reads(ctx.info)
+        self._serve_reads(after)
+        _t5 = time.perf_counter()
+
+        # -- 7. maintain: checkpoints, compaction, snapshot downloads --------
+        self._maintain(after, ctx.base, ctx.term)
+        self._snapshot_requests(ctx.info, ctx.base)
+        _t6 = time.perf_counter()
+
+        m = self.metrics
+        m.observe("tick_stage_wal_s", _t1 - _t0)
+        m.observe("tick_stage_fsync_s", _t2 - _t1)
+        m.observe("tick_stage_send_s", _t3 - _t2)
+        m.observe("tick_stage_apply_s", _t4 - _t3)
+        m.observe("tick_stage_reads_s", _t5 - _t4)
+        m.observe("tick_stage_maintain_s", _t6 - _t5)
+
+    def _ensure_host_pool(self) -> ThreadPoolExecutor:
+        """W-1 stripe workers; the tick thread itself is worker 0."""
+        if self._host_pool is None:
+            self._host_pool = ThreadPoolExecutor(
+                max_workers=self._w_eff - 1,
+                thread_name_prefix=f"raft-host-{self.node_id}")
+        return self._host_pool
+
+    def _host_phase_striped(self, ctx: _TickCtx, defer_send: bool) -> None:
+        """The striped host phase: W workers (the tick thread is worker
+        0) each own a disjoint, WAL-stripe-aligned group set end-to-end.
+
+        Phase A — each worker stages ITS groups' durable writes
+        (``_persist_stage`` over its stripe mask) and fsyncs ITS shard
+        files (``store.sync_stripes``); barrier.  Phase B — each worker
+        packs ITS groups' outbox sections and runs ITS groups' applies
+        (``dispatcher.advance`` over a pre-sliced index view); barrier.
+        Reads and maintenance stay on the tick thread (global queues).
+
+        Zero cross-stripe locking: every structure mutated inside a
+        stage is keyed or element-indexed by group, and the stripe map
+        assigns each group to exactly one worker — single-writer-per-
+        group holds by construction.  Ack-after-fsync holds exactly as
+        serial: the Phase A barrier (all shard fsyncs done) strictly
+        precedes any Phase B send or future completion.
+
+        Membership-config ticks (leader conf appends or adopted conf
+        words) return None from prepare and run the serial phase: the
+        conf sidecar is one global JSON doc and conf traffic is rare."""
+        _t0 = time.perf_counter()
+        prep = self._persist_prepare(
+            ctx.info, ctx.term, ctx.voted, ctx.leader, ctx.base,
+            ctx.base_term, ctx.staged_payloads, ctx.arrays, ctx.submit_n,
+            for_stripes=True)
+        if prep is None:
+            self._host_phase_serial(ctx, defer_send)
+            return
+        G = self.cfg.n_groups
+        W = self._w_eff
+        pool = self._ensure_host_pool()
+        masks, stripes = self._worker_masks, self._worker_stripes
+
+        poisoned = self._poisoned_stripes
+
+        def _phase_a(k: int):
+            a0 = time.perf_counter()
+            staged = self._persist_stage(prep, mask=masks[k])
+            a1 = time.perf_counter()
+            if staged or self._sync_pending:
+                mine = [s for s in stripes[k] if s not in poisoned] \
+                    if poisoned else stripes[k]
+                if mine:
+                    self.store.sync_stripes(mine)
+            return a1 - a0, time.perf_counter() - a1
+
+        futs = [pool.submit(_phase_a, k) for k in range(1, W)]
+        res_a: List[Tuple[float, float]] = []
+        errs: List[Exception] = []
+        try:
+            res_a.append(_phase_a(0))
+        except (WalNoSpace, WalSyncError) as e:
+            errs.append(e)
+            res_a.append((0.0, 0.0))
+        for f in futs:
+            try:
+                res_a.append(f.result())
+            except (WalNoSpace, WalSyncError) as e:
+                errs.append(e)
+                res_a.append((0.0, 0.0))
+        if errs:
+            # EVERY worker has finished — no staging races the fault
+            # handler — and sync_shards already fsynced each worker's
+            # healthy shards before raising, so only the failed stripes'
+            # groups are unconfirmed.  Merge and surface.
+            from ..log.wal import _merge_wal_errors
+            raise _merge_wal_errors(errs)
+        self._watch_io(max(r[1] for r in res_a))
+        # Orchestrator-only tail of the barrier: the conf sidecar (dirty
+        # only when an adoption span truncated recorded conf entries) is
+        # one global file and flushes before any ack leaves; refusal
+        # sweeps touch the submit lock.
+        self.store.conf_flush()
+        self._barrier_ok()
+        if self._lat_tick:
+            # Staged/fsynced resolve at the Phase A barrier (per-stripe
+            # stage and fsync interleave inside the workers, so the
+            # stamps share the all-shards-durable instant).
+            self._lat_stamp(STAGED)
+            self._lat_stamp(FSYNCED)
+        if self._hops is not None:
+            # Staged/fsynced collapse to the Phase A barrier here too;
+            # one fsynced fold stamps both and readies echoes for the
+            # Phase B flush.
+            self._hops.fold_foreign(self._durable_tail_m, fsynced=True)
+        self._sweep_rejections(prep)
+        self._hops_scan(ctx)
+        ctx.staged_payloads = ctx.arrays = None
+
+        self.dispatcher.warm_mirror(G)
+        before = self.dispatcher.applied_frontier(G)
+        groups = self._worker_groups
+        if self._lat is not None:
+            # Commit stamps strictly precede apply/ack stamps: Phase B's
+            # advance() completes promises (and the traced batch's ack).
+            self._lat.mark_committed(ctx.commit)
+
+        def _phase_b(k: int):
+            b0 = time.perf_counter()
+            held = self._stash_outbox_sections(
+                ctx.outbox, deferred=ctx.deferred_ae, mask=masks[k])
+            b1 = time.perf_counter()
+            self.dispatcher.advance(ctx.commit, groups=groups[k])
+            return held, b1 - b0, time.perf_counter() - b1
+
+        futs = [pool.submit(_phase_b, k) for k in range(1, W)]
+        res_b = [_phase_b(0)] + [f.result() for f in futs]
+        for held, _ts, _ta in res_b:
+            for p, secs in held.items():
+                self._held_sections.setdefault(p, []).extend(secs)
+        if not defer_send:
+            self._flush_sends()
+        if self._lat_tick:
+            self._lat_stamp(SENT)
+        after = self.dispatcher.applied_frontier(G)
+        self.metrics["applies"] += int((after - before).sum())
+        self.metrics["commits"] = int(ctx.commit.astype(np.int64).sum())
+        _t4 = time.perf_counter()
+
+        self._harvest_reads(ctx.info)
+        self._serve_reads(after)
+        _t5 = time.perf_counter()
+
+        self._maintain(after, ctx.base, ctx.term)
+        self._snapshot_requests(ctx.info, ctx.base)
+        _t6 = time.perf_counter()
+
+        m = self.metrics
+        # Stage times report the BARRIER (max-across-workers) cost — the
+        # wall-clock shape of the tick; per-worker utilization goes to
+        # the stripe_busy_s histogram (one sample per worker per tick).
+        m.observe("tick_stage_wal_s", max(r[0] for r in res_a))
+        m.observe("tick_stage_fsync_s", max(r[1] for r in res_a))
+        m.observe("tick_stage_send_s", max(r[1] for r in res_b))
+        m.observe("tick_stage_apply_s", max(r[2] for r in res_b))
+        m.observe("tick_stage_reads_s", _t5 - _t4)
+        m.observe("tick_stage_maintain_s", _t6 - _t5)
+        for k in range(W):
+            m.observe("stripe_busy_s",
+                      res_a[k][0] + res_a[k][1]
+                      + res_b[k][1] + res_b[k][2])
+        # Per-worker utilization intervals for /timeline + debug dumps:
+        # (stage, fsync, send, apply) wall seconds per worker this tick.
+        self._worker_util.append(
+            {"tick": self.ticks,
+             "workers": [[round(res_a[k][0], 6), round(res_a[k][1], 6),
+                          round(res_b[k][1], 6), round(res_b[k][2], 6)]
+                         for k in range(W)]})
+
+    def _host_phase_native(self, ctx: _TickCtx, defer_send: bool) -> None:
+        """The native host phase: the tick's durable hot loop — arena
+        staging, per-shard fsync, and the AppendEntries payload-blob
+        pack — crosses into the WAL engine's C side, which fans out over
+        real OS threads with the GIL released, while the tick thread
+        stays pure orchestration.  Segment bytes, record order, and the
+        ack-after-fsync barrier are identical to the Python serial and
+        striped paths (recovery is interchangeable between backends).
+
+        Membership-config ticks fall back to the serial phase exactly
+        like the striped path (one global conf sidecar, rare traffic);
+        any native staging failure is an IOError from the store — same
+        failure surface as a Python-path write error."""
+        G = self.cfg.n_groups
+        _t0 = time.perf_counter()
+        prep = self._persist_prepare(
+            ctx.info, ctx.term, ctx.voted, ctx.leader, ctx.base,
+            ctx.base_term, ctx.staged_payloads, ctx.arrays, ctx.submit_n,
+            for_stripes=True)
+        if prep is None:
+            self._host_phase_serial(ctx, defer_send)
+            return
+        _st_s, fs_s = self._persist_stage_native(prep)
+        self._watch_io(fs_s)
+        # Orchestrator tail of the barrier (same as striped): the conf
+        # sidecar flushes before any ack leaves; refusal sweeps touch
+        # the submit lock.
+        self.store.conf_flush()
+        self._barrier_ok()
+        if self._lat_tick:
+            # One C call stages AND fsyncs — both stamps resolve at its
+            # return (the split lives in the engine's wal_stats()).
+            self._lat_stamp(STAGED)
+            self._lat_stamp(FSYNCED)
+        if self._hops is not None:
+            self._hops.fold_foreign(self._durable_tail_m, fsynced=True)
+        self._sweep_rejections(prep)
+        self._hops_scan(ctx)
+        # The native call is done — the arena views the spans pinned are
+        # no longer referenced from C.
+        ctx.staged_payloads = ctx.arrays = None
+        _t1 = time.perf_counter()
+
+        held = self._stash_outbox_sections(
+            ctx.outbox, deferred=ctx.deferred_ae,
+            blob_fn=self._native_blob_fn)
+        for p, secs in held.items():
+            self._held_sections.setdefault(p, []).extend(secs)
+        if not defer_send:
+            self._flush_sends()
+        _t3 = time.perf_counter()
+        if self._lat_tick:
+            self._lat_stamp(SENT)
+
+        if self._lat is not None:
+            self._lat.mark_committed(ctx.commit)
+        before = self.dispatcher.applied_frontier(G)
+        self.dispatcher.advance(ctx.commit)
+        after = self.dispatcher.applied_frontier(G)
+        self.metrics["applies"] += int((after - before).sum())
+        self.metrics["commits"] = int(ctx.commit.astype(np.int64).sum())
+        _t4 = time.perf_counter()
+
+        self._harvest_reads(ctx.info)
+        self._serve_reads(after)
+        _t5 = time.perf_counter()
+
+        self._maintain(after, ctx.base, ctx.term)
+        self._snapshot_requests(ctx.info, ctx.base)
+        _t6 = time.perf_counter()
+
+        m = self.metrics
+        # wal_s is everything up to the barrier minus the C-measured
+        # fsync share: prepare + span assembly + the native stage.
+        m.observe("tick_stage_wal_s", max(0.0, (_t1 - _t0) - fs_s))
+        m.observe("tick_stage_fsync_s", fs_s)
+        m.observe("tick_stage_send_s", _t3 - _t1)
+        m.observe("tick_stage_apply_s", _t4 - _t3)
+        m.observe("tick_stage_reads_s", _t5 - _t4)
+        m.observe("tick_stage_maintain_s", _t6 - _t5)
+
+    def _native_blob_fn(self, cols, starts, ns):
+        """codec ``payload_blob_fn``: native AE blob pack (None → the
+        codec's Python per-column loop)."""
+        return self.store.pack_ae_blob(cols, starts, ns,
+                                       workers=self._w_native)
+
+    # ------------------------------------------------- storage-fault policy
+
+    def _barrier(self) -> None:
+        """THE durability barrier with quarantined stripes carved out:
+        a poisoned stripe is fail-stop — its fsync is NEVER retried on
+        the same fd (the page cache may have dropped the dirty pages
+        that failed to reach the device, so a later "clean" return
+        would be a lie — the PostgreSQL fsyncgate lesson).  The conf
+        sidecar and every healthy stripe still barrier normally."""
+        if not self._poisoned_stripes:
+            self.store.sync()
+            return
+        cf = getattr(self.store, "conf_flush", None)
+        if cf is not None:
+            cf()
+        healthy = [s for s in range(self._n_stripes)
+                   if s not in self._poisoned_stripes]
+        if healthy and hasattr(self.store, "sync_stripes"):
+            self.store.sync_stripes(healthy)
+
+    def _barrier_ok(self) -> None:
+        """A durability barrier completed: everything staged on healthy
+        stripes is now on disk.  Clear the retry/backpressure state and
+        advance the device-feed clamp for healthy groups (quarantined
+        groups stay frozen at their last confirmed tail forever)."""
+        self._sync_pending = False
+        if self._io_backpressure:
+            self._io_backpressure = False
+            self.metrics.gauge("io_backpressure", 0)
+            log.warning("node %d: WAL barrier recovered — admission "
+                        "backpressure released", self.node_id)
+        if self._acked_tail is None:
+            return
+        if self._healthy_groups is None:
+            self._acked_tail = None   # fully clean: back to the fast path
+        else:
+            np.copyto(self._acked_tail, self._durable_tail_m,
+                      where=self._healthy_groups)
+
+    def _watch_io(self, fsync_s: float) -> None:
+        """Slow-I/O watchdog: a barrier that completes but takes longer
+        than RAFT_SLOW_IO_S is a gray failure — surfaced on /metrics
+        (slow_io_ticks, io_slow) and /healthz, never acted on
+        automatically (a slow disk is not a broken disk)."""
+        if fsync_s > self._slow_io_s:
+            self.metrics["slow_io_ticks"] += 1
+            if not self._io_slow:
+                self._io_slow = True
+                self.metrics.gauge("io_slow", 1)
+                log.warning("node %d: slow storage — fsync barrier took "
+                            "%.3fs (threshold %.3fs)", self.node_id,
+                            fsync_s, self._slow_io_s)
+        elif self._io_slow:
+            self._io_slow = False
+            self.metrics.gauge("io_slow", 0)
+
+    def _storage_fault(self, exc: Exception, pre_tail: np.ndarray) -> None:
+        """Failure-response policy for a failed durability barrier —
+        the principled taxonomy the storage nemesis exercises:
+
+        * ``WalNoSpace`` (ENOSPC): RETRIABLE.  Engines rewound their
+          segments and kept their staged buffers; engage admission
+          backpressure (new submissions refuse with BusyLoop) and force
+          the next tick's barrier to retry the flush.  The tick loop
+          never wedges.
+        * ``WalSyncError`` with poisoned shards (fsync failure, torn
+          write): FAIL-STOP for those stripes.  Quarantine their groups
+          — fail in-flight futures, go silent so peers re-elect.
+        * ``WalSyncError`` with no shards (conf-sidecar flush):
+          transient; skip the tick and retry at the next barrier.
+
+        In every case the rest of this tick's host phase was aborted —
+        nothing past the failed barrier (sends, future completions,
+        read serving) ran, preserving ack-after-fsync — and the
+        device-feed clamp ``_acked_tail`` pins the affected groups at
+        ``pre_tail`` so the scan can never self-ack a staged-but-
+        unsynced range into a commit."""
+        G = self.cfg.n_groups
+        poisoned = set(getattr(exc, "shards", ()) or ())
+        nospace = set(getattr(exc, "nospace", ()) or ())
+        if isinstance(exc, WalNoSpace):
+            nospace |= poisoned
+            poisoned = set()
+        if poisoned or nospace:
+            unconfirmed = np.isin(self._stripe_of,
+                                  sorted(poisoned | nospace))
+        else:
+            # Global transient (conf flush precedes the shard fsyncs in
+            # store.sync): conservatively treat every group's staged
+            # records as unconfirmed until the retried barrier lands.
+            unconfirmed = np.ones(G, bool)
+        if self._acked_tail is None:
+            self._acked_tail = self._durable_tail_m.copy()
+        np.copyto(self._acked_tail,
+                  np.minimum(self._acked_tail, pre_tail),
+                  where=unconfirmed)
+        self._sync_pending = True
+        if nospace:
+            if not self._io_backpressure:
+                self._io_backpressure = True
+                self.metrics.gauge("io_backpressure", 1)
+            self.metrics["enospc_backpressure"] += 1
+            log.error("node %d: WAL out of disk space — admission "
+                      "backpressure engaged, barrier will retry: %s",
+                      self.node_id, exc)
+        new = poisoned - self._poisoned_stripes
+        if new:
+            self._quarantine_stripes(new, exc)
+        elif not poisoned and not nospace:
+            self.metrics["storage_transient_errors"] += 1
+            log.error("node %d: durability barrier failed (transient, "
+                      "retried next tick): %s", self.node_id, exc)
+
+    def _quarantine_stripes(self, shards, cause: Exception) -> None:
+        """Fail-stop quarantine: the groups on ``shards`` go SILENT —
+        in-flight futures fail with StorageFaultError, their lanes
+        deactivate (next dispatch), and no frame for them ever leaves
+        again (outbox packing masks them) — so a healthy replica takes
+        over at the peers' next election timeout.  Deliberately NO
+        TimeoutNow/transfer: any further send for these groups could
+        carry a staged-but-unsynced range that followers would ack into
+        a commit this node cannot durably back (see PARITY.md).
+
+        Queued-but-unoffered submissions and reads are failed by the
+        lifecycle sweep when the deactivation applies (a direct reject
+        here could race an already-dispatched tick's accept accounting);
+        new arrivals are refused immediately via ``_refusal``."""
+        self._poisoned_stripes |= set(shards)
+        self.metrics["fsync_failures"] += len(shards)
+        self.metrics.gauge("stripes_poisoned", len(self._poisoned_stripes))
+        self._healthy_groups = ~np.isin(self._stripe_of,
+                                        sorted(self._poisoned_stripes))
+        bad = np.nonzero(~self._healthy_groups & self.h_active)[0]
+        log.error("node %d: WAL stripe(s) %s fail-stop after durability "
+                  "failure (%s) — quarantining %d group(s); lanes go "
+                  "silent, peers re-elect", self.node_id,
+                  sorted(shards), cause, len(bad))
+        for g in bad.tolist():
+            g = int(g)
+            self.dispatcher.abort_promises(g, StorageFaultError(
+                f"group {g}: WAL stripe quarantined after a durability "
+                f"failure ({cause}); outcome unknown — the entry may "
+                f"already be replicated"))
+            self.set_active(g, False)
+
+    # ---------------------------------------------------------- persistence
+
+    def _persist_prepare(self, info: StepInfo, h_term, h_voted, h_leader,
+                         h_base, h_base_term, staged_payloads, inbox_arrays,
+                         submit_n, for_stripes: bool = False
+                         ) -> Optional[_PersistPrep]:
+        """Precompute one tick's persist inputs — change-detection masks,
+        the staged-frame metadata fancy-indexes, and the ONE lock'd
+        submission-queue pop — for ``_persist_stage`` to consume, either
+        over the whole group space (serial) or per stripe mask (striped
+        workers, which share one prep).
+
+        ``for_stripes=True`` bails out (returns None) when the tick
+        carries membership-config entries — leader conf appends or
+        adopted conf words: the conf sidecar is one global doc and conf
+        traffic is rare, so those ticks run the serial phase instead.
+        The bail happens BEFORE any mutation (in particular before the
+        submission pop): the serial fallback re-runs prepare, and a
+        double pop would desynchronize the durable log from the promise
+        map."""
+        dirty_mask = np.asarray(info.dirty)
+        app_from = np.asarray(info.appended_from)
+        app_to = np.asarray(info.appended_to)
+        sub_start = np.asarray(info.submit_start)
+        sub_acc = np.asarray(info.submit_acc)
+        wrote = np.nonzero(app_to > 0)[0]
+        conf_app = np.asarray(info.conf_app_idx)
+        if for_stripes and bool((conf_app > 0).any()):
+            return None
+        wrote_l = wrote.tolist()
+        # Staged-frame metadata for the whole wrote set in three fancy
+        # indexes (the per-group [src, g] scalar reads were ~3 numpy
+        # scalar indexings per adopting group).
+        if inbox_arrays and len(wrote):
+            src_clip = np.maximum(h_leader[wrote], 0)
+            fr_valid = (inbox_arrays["ae_valid"][src_clip, wrote]
+                        & (h_leader[wrote] >= 0)).tolist()
+            fr_n = inbox_arrays["ae_n"][src_clip, wrote].tolist()
+            fr_start = (inbox_arrays["ae_prev_idx"][src_clip, wrote]
+                        + 1).tolist()
+            fr_ents = inbox_arrays["ae_ents"]
+            fr_cents = inbox_arrays.get("ae_cents")
+            if for_stripes and fr_cents is not None \
+                    and bool(fr_cents[src_clip, wrote].any()):
+                # Adopted config words would put_conf from stripe workers.
+                return None
+        else:
+            fr_valid = [False] * len(wrote_l)
+            fr_n = [0] * len(wrote_l)
+            fr_start = [0] * len(wrote_l)
+            fr_ents = None
+            fr_cents = None
+
+        p = _PersistPrep()
+        p.dirty_mask = dirty_mask
+        p.log_tail = np.asarray(info.log_tail).astype(np.int64)
+        p.h_term, p.h_voted = h_term, h_voted
+        p.h_base, p.h_base_term = h_base, h_base_term
+        p.submit_n, p.sub_acc = submit_n, sub_acc
+        p.staged_payloads = staged_payloads
+        p.wrote, p.wrote_l = wrote, wrote_l
+        # Row extraction as plain lists: the staging loop runs once per
+        # written group (~100k/tick at scale) and a numpy scalar index +
+        # int() costs ~3x a list index.
+        p.lo_l = app_from[wrote].tolist()
+        p.hi_l = app_to[wrote].tolist()
+        p.nsub_l = sub_acc[wrote].tolist()
+        p.sublo_l = sub_start[wrote].tolist()
+        p.src_l = h_leader[wrote].tolist()
+        p.term_l = h_term[wrote].tolist()
+        p.fr_valid, p.fr_n, p.fr_start = fr_valid, fr_n, fr_start
+        p.fr_ents, p.fr_cents = fr_ents, fr_cents
+        # (term, ballot) change detection (reference RaftMember ctor
+        # persists first, context/member/RaftMember.java:25) — the store
+        # writes + mirror updates happen per stage, under its mask.
+        p.stable_mask = dirty_mask & ((h_term != self._stable_term_m)
+                                      | (h_voted != self._stable_voted_m))
+        noop_arr = np.asarray(info.noop_idx)
+        p.noop_idx = noop_arr
+        p.noop_term = np.asarray(info.noop_term)
+        p.noop_g = np.nonzero(noop_arr > 0)[0].tolist()
+        p.conf_app = conf_app
+        p.conf_term = np.asarray(info.conf_app_term)
+        p.conf_word = np.asarray(info.conf_app_word)
+        # Pop every accepting group's accepted prefix under ONE lock;
+        # promise-range registration happens in the stage, outside it.
+        own_by_g: Dict[int, List[tuple]] = {}
+        sub_groups = wrote[sub_acc[wrote] > 0]
+        tr = self._lat
+        lat_tick = self._lat_tick
+        lat_tick.clear()
+        if len(sub_groups) or self._queued_total > 0:
+            # Sojourn clock for the admission controller: device-accept
+            # time minus the OLDEST queued batch's enqueue time — the
+            # tick's max queue delay, one sample per tick (consumed by
+            # tick()'s note_delay feed).
+            adm_now = time.monotonic()
+            adm_oldest = None
+            adm = self.admission
+            adm_expire = adm.expire_age() if adm.enabled else None
+            expired = []
+            with self._submit_lock:
+                for g in sub_groups.tolist():
+                    acc_n = int(sub_acc[g])
+                    q = self._submissions.get(g)
+                    cursor = int(sub_start[g])
+                    need = acc_n
+                    taken_spans = own_by_g[g] = []
+                    while need > 0:
+                        # The device never accepts more than submit_n
+                        # (== queue depth at inbox build); an empty queue
+                        # here means the durable log and the promise map
+                        # would silently desynchronize.
+                        assert q, (f"g={g}: device accepted {acc_n} "
+                                   "submissions beyond the queued depth")
+                        b = q[0]
+                        avail = len(b.run) - b.taken
+                        take = min(avail, need)
+                        taken_spans.append((cursor, b, b.taken, take))
+                        if tr is not None:
+                            sp = b.sink.span
+                            if sp is not None and sp.outcome is None \
+                                    and b.taken <= sp.k < b.taken + take:
+                                # Device accepted the traced entry: pin
+                                # its (group, log index) and queue it
+                                # for this tick's durability stamps and
+                                # the cross-tick commit watch.
+                                sp.group = g
+                                sp.idx = cursor + (sp.k - b.taken)
+                                sp.tick = self.ticks
+                                sp.mark(OFFERED)
+                                lat_tick.append(sp)
+                                tr.pending_commit.append(sp)
+                                if self._hops is not None:
+                                    # Hop attribution follows the span:
+                                    # its (group, idx) is pinned now, so
+                                    # the fetch-side coverage scan can
+                                    # match AE frames to it.
+                                    self._hops.track(sp)
+                        b.taken += take
+                        cursor += take
+                        need -= take
+                        if b.taken == len(b.run):
+                            q.popleft()
+                    self._queued_n[g] -= acc_n
+                    self._queued_total -= acc_n
+                # Sojourn sample + late shed over EVERY non-empty queue
+                # — not just groups the device accepted from this tick.
+                # A group whose device log is momentarily full accepts
+                # nothing for a few ticks; its queue must neither rot
+                # invisibly (delay sample) nor past the age cap (late
+                # shed, CoDel's queue drop: the backlog admitted before
+                # the controller engaged would otherwise be served long
+                # past any client deadline).  The oldest entries sit at
+                # the HEAD while the queue is still FIFO (pre-engage
+                # transient) and at the TAIL once LIFO kicks in, so
+                # check both ends.  Only untouched batches (taken == 0)
+                # are expirable; never entries the device accepted.
+                # Pipelined, the step dispatched after this tick's was
+                # offered ``held`` more entries that it may accept: the
+                # queue keeps at least that many, or the next pop would
+                # find the device ahead of the queue.
+                held = self._inflight_submit - submit_n
+                for g, q in self._submissions.items():
+                    if not q:
+                        continue
+                    t0 = min(q[0].t_enq, q[-1].t_enq)
+                    if adm_oldest is None or t0 < adm_oldest:
+                        adm_oldest = t0
+                    if adm_expire is not None:
+                        keep = int(held[g])
+                        while q and q[0].taken == 0 \
+                                and adm_now - q[0].t_enq > adm_expire \
+                                and self._queued_n[g] - len(q[0].run) \
+                                >= keep:
+                            self._expire_batch(g, q.popleft(), expired)
+                        while q and q[-1].taken == 0 \
+                                and adm_now - q[-1].t_enq > adm_expire \
+                                and self._queued_n[g] - len(q[-1].run) \
+                                >= keep:
+                            self._expire_batch(g, q.pop(), expired)
+            if adm_oldest is not None:
+                self._adm_delay = adm_now - adm_oldest
+            # Fail expired sinks OUTSIDE the submit lock: future done-
+            # callbacks run inline and must not execute under our lock.
+            for g, sink in expired:
+                sink._fail(as_refusal(OverloadError(
+                    f"group {g}: shed from queue after exceeding the "
+                    "overload age cap",
+                    retry_after_s=adm.retry_after())))
+        p.own_by_g = own_by_g
+        return p
+
+    def _expire_batch(self, g: int, b: "_SubBatch", out: list) -> None:
+        """Unlink one never-accepted batch from the queue accounting
+        (submit lock held; the sink fails after the lock drops)."""
+        nb = len(b.run)
+        self._queued_n[g] -= nb
+        self._queued_total -= nb
+        self.admission.expired += nb
+        out.append((g, b.sink))
+
+    def _stage_stable(self, prep: _PersistPrep,
+                      mask: Optional[np.ndarray] = None) -> bool:
+        """Stage this share's (term, ballot) stable records (durable
+        before any reply leaves) as ONE batch of moved lanes (steady
+        state: an empty call) and refresh the stable mirrors.  Returns
+        whether anything was staged.  Shared by the serial/striped
+        ``_persist_stage`` and the native host phase (stable records are
+        Python-staged into the engine buffers ahead of the native call —
+        the per-shard record order stays stable → entries → truncates →
+        milestones, matching the serial path byte-for-byte)."""
+        st_changed = prep.stable_mask if mask is None \
+            else prep.stable_mask & mask
+        h_term, h_voted = prep.h_term, prep.h_voted
+        if not st_changed.any():
+            return False
+        moved = np.nonzero(st_changed)[0]
+        put_batch = getattr(self.store, "put_stable_batch", None)
+        if put_batch is not None:
+            put_batch(moved.tolist(), h_term[moved].tolist(),
+                      h_voted[moved].tolist())
+        else:
+            for g in moved.tolist():
+                self.store.put_stable(g, int(h_term[g]), int(h_voted[g]))
+        self._stable_term_m[st_changed] = h_term[st_changed]
+        self._stable_voted_m[st_changed] = h_voted[st_changed]
+        return True
+
+    def _build_spans(self, prep: _PersistPrep,
+                     mask: Optional[np.ndarray] = None) -> List[tuple]:
+        """Build this share's arena spans — ``(g, start, piece, lens,
+        terms)`` — plus the promise-range registrations and membership
+        sidecar records that travel with them.  Pure assembly: no WAL
+        write happens here, so the serial/striped staging path and the
+        native columnar handoff consume identical spans.
+
+        Thread safety under a stripe mask: every dispatcher / sidecar
+        mutation below is keyed by group and worker masks are disjoint —
+        no locks (_host_phase_striped)."""
+        # Entries appended/overwritten this tick land as contiguous
+        # arena SPANS — crossing into the WAL engine once per stage with
+        # numpy vectors (VERDICT r4 #2: the per-entry Python staging
+        # loops here were the durable tier's scaling wall).  Adoption
+        # spans slice the wire frame's arena directly; own-submission
+        # spans slice the client-built batch arenas.
+        spans: List[tuple] = []   # (g, start_idx, piece, lens_u32, terms_i64)
+        # Election-win no-ops (Raft §8, engine phase 3): staged FIRST —
+        # a no-op's index precedes any same-tick submission range, and
+        # WAL replay order must match index order (an append drops the
+        # suffix at >= its index).
+        for g in prep.noop_g:
+            if mask is None or mask[g]:
+                spans.append((g, int(prep.noop_idx[g]), b"",
+                              _NOOP_LENS, int(prep.noop_term[g])))
+        reg_range = self.dispatcher.register_promise_range
+        staged_payloads = prep.staged_payloads
+        own_by_g = prep.own_by_g
+        wrote_l, lo_l, hi_l = prep.wrote_l, prep.lo_l, prep.hi_l
+        nsub_l, sublo_l = prep.nsub_l, prep.sublo_l
+        src_l, term_l = prep.src_l, prep.term_l
+        fr_valid, fr_n, fr_start = prep.fr_valid, prep.fr_n, prep.fr_start
+        fr_ents, fr_cents = prep.fr_ents, prep.fr_cents
+        put_conf = getattr(self.store, "put_conf", None)
+        conf_overwrite = getattr(self.store, "conf_overwrite", None)
+        j_iter = range(len(wrote_l)) if mask is None \
+            else np.nonzero(mask[prep.wrote])[0].tolist()
+        for j in j_iter:
+            g = wrote_l[j]
+            lo, hi = lo_l[j], hi_l[j]
+            n_sub = nsub_l[j]
+            sub_lo = sublo_l[j]
+            leader_src = src_l[j]
+            # The written range splits into a follower-adoption prefix and
+            # an own-submission suffix (in practice a tick has one or the
+            # other: adoption needs a non-leader at phase 4, submission a
+            # leader at phase 8).
+            adopt_hi = min(hi, sub_lo - 1) if n_sub else hi
+            gap = False
+            if adopt_hi >= lo:
+                # Follower adoption: ONE arena slice per group from the
+                # leader's frame (payload run + term vector travel in the
+                # same frame, so their coverage agrees; both are still
+                # bounds-checked).  A partially covered range stages the
+                # covered prefix — the durable prefix stays contiguous and
+                # the leader's resend re-delivers the rest (same loss
+                # semantics as the reference's rejected AE).
+                run = staged_payloads.get((leader_src, g)) \
+                    if leader_src >= 0 else None
+                end_cov = lo - 1
+                if run is not None and fr_valid[j] and fr_n[j] > 0 \
+                        and lo >= run.start and lo >= fr_start[j]:
+                    end_cov = min(adopt_hi, run.end,
+                                  fr_start[j] + fr_n[j] - 1)
+                if end_cov >= lo:
+                    k = lo - run.start
+                    cnt = end_cov - lo + 1
+                    koff = lo - fr_start[j]
+                    terms = fr_ents[leader_src, g, koff:koff + cnt]
+                    spans.append((g, lo, run.piece(k, cnt),
+                                  run.lens[k:k + cnt], terms))
+                    # The membership sidecar mirrors the WAL's overwrite
+                    # semantics: an adoption span at `lo` kills every
+                    # durable entry at >= lo (a conflicting AE can
+                    # overwrite a recorded config entry with ORDINARY
+                    # entries — the sidecar record must die with it, or
+                    # recovery resurrects a dead voter set), then the
+                    # span's own config entries (nonzero conf words in
+                    # the frame) are re-recorded for the durable range.
+                    if conf_overwrite is not None:
+                        conf_overwrite(g, lo)
+                    if put_conf is not None and fr_cents is not None:
+                        cw = fr_cents[leader_src, g, koff:koff + cnt]
+                        if cw.any():
+                            for kk in np.nonzero(cw)[0].tolist():
+                                put_conf(g, lo + kk, int(cw[kk]))
+                gap = end_cov < adopt_hi
+            if n_sub and not gap and hi >= sub_lo:
+                # Own accepted submissions, all at our term: slice the
+                # client-built arenas; register each span as ONE promise
+                # range (the per-entry Future registration was ~10% of
+                # the durable tick).
+                term_g = term_l[j]
+                for start_idx, b, k0, take in own_by_g.get(g, ()):
+                    reg_range(g, start_idx, take, b.sink, k0)
+                    spans.append((g, start_idx, b.run.piece(k0, take),
+                                  b.run.lens[k0:k0 + take], term_g))
+            elif n_sub:
+                # Adoption gap ahead of a same-tick submission range:
+                # unreachable by kernel phase order, asserted like the
+                # queue-depth invariant above (ADVICE r5).  Reaching here
+                # needs one tick to BOTH adopt follower entries (phase 4,
+                # gated role != LEADER after the phase-3 election update)
+                # AND accept own submissions (phase 8, requires LEADER) —
+                # and the only promotions between those phases (phase 7
+                # timers) stop at CANDIDATE.  Were it ever reached,
+                # registering promises without staging payloads would
+                # leave the accepted entries durable nowhere: pack_slice
+                # drops their AE columns forever and the group wedges
+                # with hung futures — fail loudly instead.
+                raise AssertionError(
+                    f"g={g}: adoption gap [{lo}, {adopt_hi}] ahead of "
+                    f"device-accepted own submissions at {sub_lo} — "
+                    "kernel phase order makes adopt+accept in one tick "
+                    "impossible")
+        # Config entries this node appended as leader (§6 intake accept or
+        # the automatic joint leave): staged durably with an EMPTY payload
+        # like the §8 no-op — appended AFTER the per-group spans above, so
+        # WAL replay order matches index order (a conf entry's index is
+        # the tick's highest) — plus the sidecar record recovery rebuilds
+        # the conf ring from.  Serial path only: striped prepare bails on
+        # conf-bearing ticks, so a masked stage never reaches this.
+        if mask is None and (prep.conf_app > 0).any():
+            conf_app, conf_term = prep.conf_app, prep.conf_term
+            conf_word = prep.conf_word
+            for g in np.nonzero(conf_app > 0)[0].tolist():
+                spans.append((int(g), int(conf_app[g]), b"",
+                              _NOOP_LENS, int(conf_term[g])))
+                if put_conf is not None:
+                    put_conf(int(g), int(conf_app[g]), int(conf_word[g]))
+        return spans
+
+    def _persist_stage(self, prep: _PersistPrep,
+                       mask: Optional[np.ndarray] = None) -> bool:
+        """Stage one share of the tick's durable writes (entries, stable
+        records, truncations, floors) into the WAL: the whole group
+        space (mask None — the serial phase) or one stripe worker's
+        groups.  Returns whether the share needs an fsync — the caller
+        issues the barrier (``store.sync`` / ``store.sync_stripes``)
+        and must not release the share's outbox or complete futures
+        before it.  Truncations alone do NOT request a sync (unchanged
+        serial contract: a shrink is re-derived at recovery).
+
+        Thread safety under a stripe mask: every store / dispatcher /
+        mirror mutation below is keyed or element-indexed by group, and
+        worker masks are disjoint — no locks (_host_phase_striped)."""
+        any_write = self._stage_stable(prep, mask)
+        spans = self._build_spans(prep, mask)
+        if spans:
+            append_spans = getattr(self.store, "append_spans", None)
+            if append_spans is not None:
+                append_spans(spans)
+            else:
+                # LogStoreSPI compat: a store without the arena fast path
+                # gets per-entry materialized lists (the old contract).
+                bat_g: List[int] = []
+                bat_i: List[int] = []
+                bat_t: List[int] = []
+                bat_p: List[bytes] = []
+                for g, start_idx, piece, lens, terms in spans:
+                    mv = memoryview(piece)
+                    off = 0
+                    scalar_term = isinstance(terms, int)
+                    for k, ln in enumerate(lens.tolist()):
+                        bat_g.append(g)
+                        bat_i.append(start_idx + k)
+                        bat_t.append(terms if scalar_term else int(terms[k]))
+                        bat_p.append(bytes(mv[off:off + ln]))
+                        off += ln
+                self.store.append_batch(bat_g, bat_i, bat_t, bat_p)
+            for g, start_idx, piece, lens, _terms in spans:
+                tail_new = start_idx + len(lens) - 1
+                if tail_new > self._durable_tail_m[g]:
+                    self._durable_tail_m[g] = tail_new
+            any_write = True
+
+        # Truncations: durable tail must not exceed the device tail.
+        # Change-detected via the durable-tail mirror (shrinks happen only
+        # on conflict/snapshot discard — rare).
+        shrunk = prep.dirty_mask & (self._durable_tail_m > prep.log_tail)
+        if mask is not None:
+            shrunk = shrunk & mask
+        for g in np.nonzero(shrunk)[0].tolist():
+            self.store.truncate_to(g, int(prep.log_tail[g]))
+            self._durable_tail_m[g] = prep.log_tail[g]
+
+        # WAL floor follows the device compaction floor; the pushed-floor
+        # mirror keeps this loop over only the groups that moved.
+        h_base, h_base_term = prep.h_base, prep.h_base_term
+        floors = h_base > self._wal_floor
+        if mask is not None:
+            floors = floors & mask
+        wal_floors_moved = False
+        for g in np.nonzero(floors)[0].tolist():
+            self.store.set_floor(g, int(h_base[g]), int(h_base_term[g]))
+            self._wal_floor[g] = h_base[g]
+            if h_base[g] > self._durable_tail_m[g]:
+                self._durable_tail_m[g] = h_base[g]
+            wal_floors_moved = True
+        return bool(any_write or wal_floors_moved)
+
+    def _persist_stage_native(self, prep: _PersistPrep,
+                              sync: bool = True) -> Tuple[float, float]:
+        """Stage the WHOLE tick's durable writes through the store's
+        native ``stage_and_sync`` entry point — entries by raw arena
+        pointer, truncations and milestones as columns — and fsync them
+        in the same call with real OS threads (worker k owns WAL shards
+        ``s % W == k``, the striped pool's ownership map).  Returns the
+        C-measured ``(stage_s, fsync_s)`` max-across-workers wall times.
+
+        Per-shard record order matches the serial path byte-for-byte:
+        stable records (Python-staged into the engine buffers first) →
+        entry frames → truncate records → milestone records.  The
+        truncation/floor sets below are the exact serial change-detected
+        sets; only the store-side staging crosses into C."""
+        any_write = self._stage_stable(prep)
+        spans = self._build_spans(prep)
+        for g, start_idx, _piece, lens, _terms in spans:
+            tail_new = start_idx + len(lens) - 1
+            if tail_new > self._durable_tail_m[g]:
+                self._durable_tail_m[g] = tail_new
+        any_write = bool(any_write or spans)
+        # Truncations: durable tail must not exceed the device tail.  A
+        # span this tick never lifts the mirror past log_tail, so this
+        # post-span mask equals the serial loop's; the store applies the
+        # rows verbatim (the caller owns the guard on this path).
+        shrunk = prep.dirty_mask & (self._durable_tail_m > prep.log_tail)
+        t_gs = np.nonzero(shrunk)[0]
+        t_tails = prep.log_tail[t_gs]
+        self._durable_tail_m[t_gs] = t_tails
+        # WAL floor follows the device compaction floor (the store
+        # re-checks its own wal-floor guard per row).
+        floors = prep.h_base > self._wal_floor
+        f_gs = np.nonzero(floors)[0]
+        f_idx = prep.h_base[f_gs].astype(np.int64)
+        f_term = prep.h_base_term[f_gs].astype(np.int64)
+        self._wal_floor[f_gs] = f_idx
+        self._durable_tail_m[f_gs] = np.maximum(
+            self._durable_tail_m[f_gs], f_idx)
+        # Truncations alone do NOT request a sync (serial contract), but
+        # they still stage their records.  A pending barrier (ENOSPC
+        # retry: engines kept their staged buffers) forces the fsync
+        # even on a write-free tick, else the buffers never flush.
+        need_sync = sync and bool(any_write or len(f_gs)
+                                  or self._sync_pending)
+        if not (spans or len(t_gs) or len(f_gs) or need_sync):
+            return 0.0, 0.0
+        return self.store.stage_and_sync(
+            spans, t_gs, t_tails, f_gs, f_idx, f_term,
+            workers=self._w_native, sync=need_sync)
+
+    def _sweep_rejections(self, prep: _PersistPrep) -> None:
+        """Submissions offered but refused because we are no longer
+        leader: fail fast with a redirect hint.  A still-leading group
+        whose ring is briefly full keeps its queue (backpressure, not
+        rejection — the reference distinguishes BusyLoop from NotLeader,
+        support/anomaly/).  Refusals carry no durability dependency, so
+        they may precede the tick's fsync barrier.  Orchestrator-only
+        (touches the submit lock and client futures)."""
+        rejected = np.nonzero((prep.submit_n > 0)
+                              & (prep.sub_acc < prep.submit_n)
+                              & (self.h_role != LEADER))[0]
+        for g in rejected.tolist():
+            self._reject_submissions(int(g))
+
+    def _reject_submissions(self, g: int,
+                            exc: Optional[Exception] = None) -> None:
+        """Fail every QUEUED-but-never-device-accepted submission.  These
+        provably never entered the log, so the error is a marked refusal
+        (retry-safe) — unlike dispatcher.abort_promises, which covers
+        commands already accepted into the log.  A batch whose prefix was
+        already accepted fails with the refusal as cause; its
+        BatchAbortedError reports exactly which slots completed (the
+        accepted prefix's promise range stays registered — identical to
+        the old per-slot behavior)."""
+        with self._submit_lock:
+            q = self._submissions.pop(g, None)
+            if not q:
+                return
+            self._queued_total -= int(self._queued_n[g])
+            self._queued_n[g] = 0
+        err = as_refusal(exc or NotLeaderError(g, self.leader_hint(g)))
+        for b in q:
+            b.sink._fail(err)
+
+    # ------------------------------------------------------------ read plane
+
+    def _harvest_reads(self, info: StepInfo) -> None:
+        """Tick thread: mirror the device read FIFO's transitions reported
+        in StepInfo — offered batches the device STAMPED move to pending
+        with their ReadIndex; pending batches whose barrier RELEASED move
+        to released (FIFO, exactly read_rel of them); device-side ABORTS
+        (leadership/term change dropped the whole FIFO) fail every
+        un-served batch as a retry-safe refusal."""
+        read_acc = np.asarray(info.read_acc)
+        read_idx = np.asarray(info.read_index)
+        read_rel = np.asarray(info.read_rel)
+        read_abort = np.asarray(info.read_abort)
+        self.metrics["read_lease_hits"] += int(
+            np.asarray(info.read_lease).sum())
+        with self._read_lock:
+            for g in np.nonzero(read_acc > 0)[0].tolist():
+                b = self._reads_offered.pop(g, None)
+                # The device stamps exactly the offered batch, whole (its
+                # intake reads HostInbox.read_n built from this mirror) —
+                # a mismatch means the FIFOs desynchronized, the read
+                # analog of the submit queue-depth invariant.
+                assert b is not None and int(read_acc[g]) == len(b.payloads), \
+                    (f"g={g}: device stamped {int(read_acc[g])} reads "
+                     "beyond the offered batch")
+                self._reads_pending.setdefault(g, deque()).append(
+                    (int(read_idx[g]), b))
+            for g in np.nonzero(read_rel > 0)[0].tolist():
+                q = self._reads_pending.get(g)
+                rel = self._reads_released.setdefault(g, deque())
+                for _ in range(int(read_rel[g])):
+                    assert q, (f"g={g}: device released a read batch the "
+                               "host FIFO does not hold")
+                    rel.append(q.popleft())
+                # Columnar serve gate: remember the smallest ReadIndex
+                # still waiting so _serve_reads visits only groups whose
+                # apply frontier actually reached one.
+                if rel[0][0] < self._rel_min[g]:
+                    self._rel_min[g] = rel[0][0]
+        for g in np.nonzero(read_abort)[0].tolist():
+            self._reject_reads(int(g))
+
+    def _serve_reads(self, applied: np.ndarray) -> None:
+        """Tick thread: serve released batches whose ReadIndex the apply
+        frontier covers.  Machine ``read`` runs here — the same
+        single-writer thread as applies, so queries see a consistent
+        machine with no extra locking (machine/spi.py read SPI)."""
+        # Columnar gate: one vector compare picks the groups whose apply
+        # frontier reached a released batch's ReadIndex — the every-tick
+        # walk over all groups holding a released deque was a per-group
+        # Python loop on the hot path.
+        G = len(applied)
+        due = np.nonzero(applied >= self._rel_min[:G])[0]
+        if not len(due):
+            return
+        sentinel = np.iinfo(np.int64).max
+        ready: List[Tuple[int, int, _ReadBatch]] = []
+        with self._read_lock:
+            for g in due.tolist():
+                q = self._reads_released.get(g)
+                if not q:
+                    # Stale gate (batches rejected out from under it).
+                    self._rel_min[g] = sentinel
+                    self._reads_released.pop(g, None)
+                    continue
+                a = int(applied[g])
+                while q and q[0][0] <= a:
+                    idx, b = q.popleft()
+                    ready.append((g, idx, b))
+                if q:
+                    self._rel_min[g] = q[0][0]
+                else:
+                    self._rel_min[g] = sentinel
+                    del self._reads_released[g]
+        if not ready:
+            return
+        now = time.monotonic()
+        for g, idx, b in ready:
+            machine = self.dispatcher.machine(g)
+            rd = getattr(machine, "read", None)
+            try:
+                for k, payload in enumerate(b.payloads):
+                    b.sink._complete(k, idx if rd is None else rd(payload))
+            except Exception as e:
+                # Query errors are still retry-safe: the read mutated
+                # nothing (SPI contract) and never entered the log.
+                b.sink._fail(as_refusal(e))
+                continue
+            self.metrics["reads_served"] += len(b.payloads)
+            self.metrics.observe("read_barrier_latency_s", now - b.t_enq)
+
+    def _reject_reads(self, g: int, exc: Optional[Exception] = None,
+                      drop_released: bool = False) -> None:
+        """Fail every un-served read batch for ``g`` (waiting + offered +
+        pending; ``drop_released`` adds barrier-confirmed batches too —
+        only lane close/purge does that, since a confirmed ReadIndex stays
+        servable across leadership changes).  Always a MARKED refusal:
+        reads never enter the log, so any retry is safe."""
+        with self._read_lock:
+            q = self._reads_waiting.pop(g, None)
+            batches = list(q) if q else []
+            b = self._reads_offered.pop(g, None)
+            if b is not None:
+                batches.append(b)
+            pend = self._reads_pending.pop(g, None)
+            if pend:
+                batches.extend(bb for _, bb in pend)
+            if drop_released:
+                rel = self._reads_released.pop(g, None)
+                if rel:
+                    batches.extend(bb for _, bb in rel)
+                self._rel_min[g] = np.iinfo(np.int64).max
+            self._read_queued_n[g] = 0
+        if not batches:
+            return
+        err = as_refusal(exc or NotLeaderError(g, self.leader_hint(g)))
+        for b in batches:
+            b.sink._fail(err)
+        self.metrics["read_batches_aborted"] += len(batches)
+
+    # ------------------------------------------------------------ membership
+
+    def change_membership(self, group: int, voters: int,
+                          learners: int = 0) -> Future:
+        """Reconfigure one group to the TARGET config (§6 joint
+        consensus): ``voters``/``learners`` are peer-slot bitmasks.  A
+        voter-set change walks C_old -> C_old,new -> C_new through the
+        log (the leave entry auto-appends when the joint entry commits);
+        a learner-only change is a single entry.  The future resolves —
+        with the decoded config — once the FINAL config is active and
+        committed, or fails with NotLeader on leadership loss (marked
+        retry-safe only if the change provably never entered the log).
+        One change in flight per group, here AND on the device."""
+        from ..core.types import conf_pack
+
+        fut: Future = Future()
+        P = self.cfg.n_peers
+        full = (1 << P) - 1
+        voters = int(voters)
+        learners = int(learners) & ~voters
+        if not (0 < voters <= full) or not (0 <= learners <= full) \
+                or (voters | learners) > full:
+            fut.set_exception(ValueError(
+                f"bad membership masks for P={P}: voters={voters:#x} "
+                f"learners={learners:#x}"))
+            return fut
+        err = self._refusal(group)
+        if err is not None:
+            fut.set_exception(err)
+            return fut
+        final = int(conf_pack(voters, 0, learners))
+        with self._member_lock:
+            if group in self._conf_pending:
+                fut.set_exception(as_refusal(BusyLoopError(
+                    f"group {group}: a membership change is already "
+                    "pending")))
+                return fut
+            if int(self.h_conf_word[group]) == final \
+                    and not self.h_conf_pending[group]:
+                # Already the active committed config: resolve like the
+                # settled path would.
+                fut.set_result({"voters": voters, "learners": learners})
+                return fut
+            self._conf_pending[group] = [voters, learners, fut, False]
+        return fut
+
+    def transfer_leadership(self, group: int, target: int) -> Future:
+        """Hand leadership of ``group`` to voter ``target`` (§3.10
+        TimeoutNow): fence submissions, wait for the target's match to
+        cover the log end, tell it to campaign.  Resolves with the
+        target id once this node observes its own step-down after the
+        TimeoutNow went out; fails (retry-safe) if the transfer aborts —
+        deadline, target not a voter, leadership lost first."""
+        from ..core.types import conf_new_of, conf_voters_of
+
+        fut: Future = Future()
+        target = int(target)
+        err = self._refusal(group)
+        if err is not None:
+            fut.set_exception(err)
+            return fut
+        w = int(self.h_conf_word[group])
+        if not (0 <= target < self.cfg.n_peers) \
+                or target == self.node_id \
+                or not ((conf_voters_of(w) | conf_new_of(w))
+                        >> target) & 1:
+            # The device intake only latches VOTER targets; refusing here
+            # keeps a learner/removed-slot request from pending forever.
+            fut.set_exception(as_refusal(ValueError(
+                f"transfer target {target} is not a voter of group "
+                f"{group}")))
+            return fut
+        with self._member_lock:
+            if group in self._xfer_pending:
+                fut.set_exception(as_refusal(BusyLoopError(
+                    f"group {group}: a leadership transfer is already "
+                    "pending")))
+                return fut
+            # TTL covers the never-latched case (the config changed under
+            # us, the device keeps refusing intake): the device's own
+            # deadline only starts once a transfer latches.
+            ttl = 6 * self.cfg.election_ticks + 20
+            self._xfer_pending[group] = [target, fut, False, ttl]
+        self.metrics["leadership_transfers_attempted"] += 1
+        return fut
+
+    def membership(self, group: int) -> dict:
+        """Decoded active config of one group (device mirror)."""
+        from ..core.types import (
+            conf_learners_of, conf_new_of, conf_voters_of,
+        )
+
+        w = int(self.h_conf_word[group])
+        return {
+            "voters": int(conf_voters_of(w)),
+            "voters_new": int(conf_new_of(w)),
+            "learners": int(conf_learners_of(w)),
+            "joint": bool(conf_new_of(w)),
+            "pending": bool(self.h_conf_pending[group]),
+            "conf_idx": int(self.h_conf_idx[group]),
+        }
+
+    def catch_up_gap(self, group: int, peer: int) -> int:
+        """Leader-side replication lag of one peer: ``last - match``
+        (0 = fully caught up).  An admin-cadence device read — the
+        rebalancer polls it to decide when a learner is promotable."""
+        last, match = _to_host(
+            (self.state.log.last[:, group],
+             self.state.match_idx[:, group, peer]))
+        return max(0, int(last) - int(match))
+
+    def _harvest_membership(self, info: StepInfo, h_role) -> None:
+        """Tick thread: refresh config mirrors from StepInfo, resolve
+        pending change/transfer futures, fold membership counters."""
+        from ..core.types import conf_pack
+
+        conf_word = np.asarray(info.conf_word)
+        conf_idx = np.asarray(info.conf_idx)
+        conf_pending = np.asarray(info.conf_pending)
+        app_idx = np.asarray(info.conf_app_idx)
+        fired = np.asarray(info.xfer_fired)
+        x_abort = np.asarray(info.xfer_abort)
+        m = self.metrics
+        m["membership_changes_entered"] += int((app_idx > 0).sum())
+        # A config entry COMMITTED when its pending flag clears at the
+        # same entry index (a truncation rollback changes the index too
+        # and must not count).
+        m["membership_changes_committed"] += int(
+            (self.h_conf_pending & ~conf_pending
+             & (self.h_conf_idx == conf_idx) & (conf_idx > 0)).sum())
+        m["timeout_now_sent"] += int(fired.sum())
+        self.h_conf_word = conf_word
+        self.h_conf_idx = conf_idx
+        self.h_conf_pending = conf_pending
+        settled: List[Tuple[Future, Optional[Exception], object]] = []
+        with self._member_lock:
+            for g, ent in list(self._conf_pending.items()):
+                tv, tl, fut, accepted = ent
+                if app_idx[g] > 0:
+                    ent[3] = accepted = True
+                final = int(conf_pack(tv, 0, tl))
+                if int(conf_word[g]) == final and not conf_pending[g]:
+                    del self._conf_pending[g]
+                    settled.append((fut, None, {
+                        "voters": tv, "learners": tl}))
+                elif h_role[g] != LEADER:
+                    del self._conf_pending[g]
+                    err = NotLeaderError(g, self.leader_hint(g))
+                    # Never accepted into the log -> marked retry-safe
+                    # refusal; accepted -> unmarked (the change may still
+                    # commit under the new leader).
+                    settled.append((fut,
+                                    err if accepted else as_refusal(err),
+                                    None))
+                    m["membership_changes_aborted"] += 1
+            for g, ent in list(self._xfer_pending.items()):
+                tgt, fut, was_fired, ttl = ent
+                if fired[g]:
+                    ent[2] = was_fired = True
+                ent[3] = ttl = ttl - 1
+                if h_role[g] != LEADER and was_fired:
+                    # Relinquished after TimeoutNow: the transfer
+                    # succeeded (the target campaigns with a complete
+                    # log; the leader hint converges to it).
+                    del self._xfer_pending[g]
+                    settled.append((fut, None, tgt))
+                    m["leadership_transfers_succeeded"] += 1
+                elif h_role[g] != LEADER or x_abort[g] or ttl <= 0:
+                    del self._xfer_pending[g]
+                    settled.append((fut, as_refusal(NotLeaderError(
+                        g, self.leader_hint(g))), None))
+                    m["leadership_transfers_aborted"] += 1
+        for fut, err, res in settled:
+            if fut.done():
+                continue
+            if err is None:
+                fut.set_result(res)
+            else:
+                fut.set_exception(err)
+
+    def _reject_membership(self, g: int, exc: Exception) -> None:
+        """Fail pending membership ops for a closing/destroyed lane."""
+        with self._member_lock:
+            ent = self._conf_pending.pop(g, None)
+            xent = self._xfer_pending.pop(g, None)
+        if ent is not None and not ent[2].done():
+            ent[2].set_exception(as_refusal(exc))
+            self.metrics["membership_changes_aborted"] += 1
+        if xent is not None and not xent[1].done():
+            xent[1].set_exception(as_refusal(exc))
+            self.metrics["leadership_transfers_aborted"] += 1
+
+    def _purge_lanes(self, lanes: List[int]) -> None:
+        """Wipe destroyed lanes end to end: durable WAL state, machine,
+        archived snapshots, and every device-side lane (term, log, vote,
+        replication bookkeeping) back to boot values."""
+        lane_set = set(lanes)
+        # Settle the checkpoint pool for these lanes: drop queued saves,
+        # then wait out any in-flight one (bounded) — a worker's archive
+        # insert must not race destroy() and resurrect a dead snapshot.
+        with self._ckpt_cv:
+            if self._ckpt_queue:
+                self._ckpt_queue = deque(
+                    e for e in self._ckpt_queue if e[0] not in lane_set)
+            deadline = time.monotonic() + 10
+            while True:
+                pending = (self._ckpt_inflight & lane_set) \
+                    - {d[0] for d in self._ckpt_done}
+                if not pending:
+                    break
+                if time.monotonic() > deadline:
+                    log.error("purge: checkpoint save still in flight for "
+                              "%s after 10s", sorted(pending))
+                    break
+                self._ckpt_cv.wait(timeout=0.1)
+            self._ckpt_done = [d for d in self._ckpt_done
+                               if d[0] not in lane_set]
+        self._ckpt_inflight -= lane_set
+        for g in lanes:
+            self.store.reset_group(g)
+            self.dispatcher.drop_machine(g, destroy=True)
+            self.archive.destroy(g)     # also clears any pending download
+            with self._snap_cv:
+                # Epoch bump invalidates any queued-but-unstarted fetch for
+                # the old incarnation even if the recreated lane re-enters
+                # _snap_inflight before the worker pops it.
+                self._snap_epoch[g] = self._snap_epoch.get(g, 0) + 1
+                self._snap_inflight.discard(g)
+            self.maintain.note_checkpoint(g, 0, 0)
+            self.maintain.snap_index[g] = 0
+            self.maintain.applied_at_snap[g] = 0
+        self.store.sync()
+        idx = torch.as_tensor(lanes, dtype=torch.int64, device=self.device)
+        s = self.state
+
+        def r(t, value):
+            return _reset_lanes(t, idx, value)
+
+        self.state = s.replace(
+            term=r(s.term, 0),
+            role=r(s.role, 0),
+            voted_for=r(s.voted_for, NIL),
+            leader_id=r(s.leader_id, NIL),
+            commit=r(s.commit, 0),
+            applied=r(s.applied, 0),
+            log=s.log.replace(
+                term=r(s.log.term, 0),
+                conf=r(s.log.conf, 0),
+                base=r(s.log.base, 0),
+                base_term=r(s.log.base_term, 0),
+                base_conf=r(s.log.base_conf, _boot_conf_word(self.cfg)),
+                last=r(s.log.last, 0)),
+            next_idx=r(s.next_idx, 1),
+            match_idx=r(s.match_idx, 0),
+            send_next=r(s.send_next, 1),
+            inflight=r(s.inflight, 0),
+            hb_inflight=r(s.hb_inflight, 0),
+            own_from=r(s.own_from, 0),
+            sent_at=r(s.sent_at, 0),
+            need_snap=r(s.need_snap, False),
+            ok_at=r(s.ok_at, 0),
+            fail_at=r(s.fail_at, 0),
+            fail_streak=r(s.fail_streak, 0),
+            votes=r(s.votes, False),
+            prevotes=r(s.prevotes, False),
+            read_evid=r(s.read_evid, 0),
+            rq_idx=r(s.rq_idx, 0),
+            rq_stamp=r(s.rq_stamp, 0),
+            rq_n=r(s.rq_n, 0),
+            rq_head=r(s.rq_head, 0),
+            rq_len=r(s.rq_len, 0),
+            conf_idx=r(s.conf_idx, 0),
+            conf_word=r(s.conf_word, _boot_conf_word(self.cfg)),
+            xfer_to=r(s.xfer_to, NIL),
+            xfer_dl=r(s.xfer_dl, 0),
+            trace=(s.trace.replace(
+                tick=r(s.trace.tick, 0),
+                kind=r(s.trace.kind, 0),
+                term=r(s.trace.term, 0),
+                aux=r(s.trace.aux, 0),
+                n=r(s.trace.n, 0))
+                if s.trace is not None else None),
+            heat=(s.heat.replace(
+                appended=r(s.heat.appended, 0),
+                sent=r(s.heat.sent, 0),
+                commits=r(s.heat.commits, 0),
+                reads=r(s.heat.reads, 0))
+                if s.heat is not None else None),
+        )
+        if s.trace is not None:
+            for g in lanes:
+                self.tracelog.reset_group(int(g))
+        if self.heat is not None:
+            # Device heat lanes just reset to 0 — the registry's
+            # cumulative mirror must follow or the next ingest would see
+            # a negative delta for the recreated lane.
+            for g in lanes:
+                self.heat.reset_group(int(g))
+        # device_get arrays may be read-only views; replace, don't mutate
+        hc = np.array(self.h_commit)
+        hb = np.array(self.h_base)
+        hc[np.asarray(lanes)] = 0
+        hb[np.asarray(lanes)] = 0
+        self.h_commit, self.h_base = hc, hb
+        self._wal_floor[np.asarray(lanes)] = 0
+        self._durable_tail_m[np.asarray(lanes)] = 0
+        self._stable_term_m[np.asarray(lanes)] = -2
+        self._stable_voted_m[np.asarray(lanes)] = -2
+        hcw = np.array(self.h_conf_word)
+        hci = np.array(self.h_conf_idx)
+        hcp = np.array(self.h_conf_pending)
+        hcw[np.asarray(lanes)] = _boot_conf_word(self.cfg)
+        hci[np.asarray(lanes)] = 0
+        hcp[np.asarray(lanes)] = False
+        self.h_conf_word, self.h_conf_idx = hcw, hci
+        self.h_conf_pending = hcp
+        for g in lanes:
+            self._snap_conf.pop(g, None)
+            self._reject_membership(
+                g, ObsoleteContextError(f"group {g} destroyed"))
+
+    def _payload(self, g: int, idx: int) -> Optional[bytes]:
+        return self.store.payload(g, idx)
+
+    # ------------------------------------------------------------------ send
+
+    def _stash_outbox_sections(self, h_out,
+                               deferred: Optional[Dict[int, np.ndarray]]
+                               = None,
+                               mask: Optional[np.ndarray] = None,
+                               blob_fn: Optional[Callable] = None
+                               ) -> Dict[int, List[bytes]]:
+        """Pack (a share of) one tick's outbox into per-peer kind
+        sections and return {peer: [sections]} — the caller folds into
+        ``_held_sections``; ``_flush_sends`` assembles each peer's
+        sections into ONE MSGS frame.  ``mask`` restricts to a stripe
+        worker's groups (sections from different stripes concatenate in
+        the frame; unpack_slice merges them).  ``deferred`` replaces the
+        valid-column scan for the eager kinds: only the AE columns the
+        eager pack dropped (payloads not yet staged) are packed here —
+        the rest of the AE traffic already left right after fetch."""
+        P = self.cfg.n_peers
+        # Quarantine silence: no frame for a poisoned stripe's groups
+        # ever leaves (their staged ranges may not be durable here — a
+        # resent AE could let followers quorum-commit a range this node
+        # cannot back).  Central choke point for every packing site.
+        hm = self._healthy_groups
+        if hm is not None:
+            mask = hm if mask is None else (mask & hm)
+        fields_all = {name: np.asarray(getattr(h_out, name))
+                      for name in self.template}
+        win = self.store.payloads_window
+        runs = getattr(self.store, "payload_runs", None)
+        held: Dict[int, List[bytes]] = {}
+        for p in range(P):
+            if p == self.node_id:
+                continue
+            fields = {name: arr[p] for name, arr in fields_all.items()}
+            secs: List[bytes] = []
+            for kind in KIND_FIELDS:
+                if deferred is not None and kind in EAGER_KINDS:
+                    cols = deferred.get(p)
+                    if cols is None or not len(cols):
+                        continue
+                    if mask is not None:
+                        cols = cols[mask[cols]]
+                        if not len(cols):
+                            continue
+                else:
+                    valid = fields[KIND_FIELDS[kind][0]]
+                    if mask is not None:
+                        valid = valid & mask
+                    cols = np.nonzero(valid)[0].astype(np.uint32)
+                    if not len(cols):
+                        continue
+                sec, n_cols, _dropped = pack_kind_section(
+                    kind, fields, win, runs, cols=cols,
+                    payload_blob_fn=blob_fn)
+                if n_cols:
+                    secs.append(sec)
+            if secs:
+                held[p] = secs
+        return held
+
+    def _eager_send(self, ctx: _TickCtx) -> None:
+        """Pipelined mode: pack THIS tick's AE sections right after
+        fetch, ahead of the tick's own fsync (which runs inside next
+        tick's host phase).  Safe for AE only: the commit rule counts
+        our own match at min(log.last, durable_tail) (core/step.py), so
+        an un-fsynced local range can never self-ack into a commit —
+        while AE-responses, votes and client futures stay strictly
+        behind the fsync.  Columns whose payloads are not yet in the
+        store cache (entries accepted this very tick — they stage in the
+        deferred host phase) are recorded in ``ctx.deferred_ae`` and
+        packed there instead."""
+        if self._healthy_groups is not None:
+            # Quarantine active: route ALL AE through the deferred host
+            # phase, whose packing masks the poisoned stripes' groups
+            # (eager frames must never carry their un-durable ranges).
+            ctx.deferred_ae = None
+            return
+        P = self.cfg.n_peers
+        fields_all = {name: np.asarray(getattr(ctx.outbox, name))
+                      for name in self.template}
+        win = self.store.payloads_window
+        runs = getattr(self.store, "payload_runs", None)
+        deferred: Dict[int, np.ndarray] = {}
+        n_eager = 0
+        for p in range(P):
+            if p == self.node_id:
+                continue
+            fields = {name: arr[p] for name, arr in fields_all.items()}
+            for kind in EAGER_KINDS:
+                sec, n_cols, dropped = pack_kind_section(
+                    kind, fields, win, runs)
+                if n_cols:
+                    self._held_sections.setdefault(p, []).append(sec)
+                    n_eager += n_cols
+                if len(dropped):
+                    deferred[p] = dropped
+        ctx.deferred_ae = deferred
+        if n_eager:
+            self.metrics["eager_sends"] += n_eager
+
+    def _flush_sends(self) -> None:
+        """Assemble every peer's held sections into ONE MSGS frame and
+        release it.  The single per-tick flush point: in pipelined mode
+        a peer's frame combines the previous tick's post-fsync sections
+        with this tick's eager AE sections (eager last — for a lane
+        duplicated across sections, unpack's scatter is last-wins, so
+        the newer AE stands).
+
+        Hop-tracing sideband: pending HOPS requests/echoes piggyback on
+        the same send_slice blob (FrameReader parses concatenated
+        frames), so hop records share fate with the tick's real traffic
+        — a cut link delays both identically and ``wire`` measures the
+        path the entries actually took."""
+        held, self._held_sections = self._held_sections, {}
+        hops = self._hops
+        if hops is not None:
+            for p in hops.out_peers():
+                held.setdefault(p, [])
+        for p, secs in held.items():
+            blob = assemble_slice(self.node_id, secs) if secs else b""
+            if hops is not None:
+                out = hops.take_out(p)
+                if out is not None:
+                    reqs, echoes = out
+                    if reqs:
+                        blob += pack_hops(HOP_REQUEST, self.node_id, reqs)
+                    if echoes:
+                        blob += pack_hops(HOP_ECHO, self.node_id, echoes)
+            if blob:
+                self.transport.send_slice(p, blob)
+
+    # -------------------------------------------------------------- maintain
+
+    def _maintain(self, applied: np.ndarray, h_base, h_term) -> None:
+        now = self.ticks
+        # Harvest completed off-thread saves FIRST: a milestone feeds the
+        # compaction policy only once its archive copy is durable on disk
+        # (a compaction grant must never outrun its snapshot).
+        with self._ckpt_cv:
+            done, self._ckpt_done = self._ckpt_done, []
+        for g, idx, ok in done:
+            self._ckpt_inflight.discard(g)
+            if ok:
+                self.maintain.note_checkpoint(g, now, idx)
+                self.metrics["snapshots_taken"] += 1
+            else:
+                # Archive copy failed (disk error / injected fault): the
+                # previous milestone stands — note_checkpoint was NOT
+                # called, so compaction never advances past a snapshot
+                # that does not exist on disk, the group stays due, and
+                # the save retries on a later maintain pass.  Surfaced,
+                # never wedged.
+                self.metrics["ckpt_failures"] += 1
+        need = self.maintain.need_checkpoint(now, applied, h_base)
+        due = np.nonzero(need)[0]
+        if len(due) > self.max_checkpoints_per_tick:
+            # Rotate the selection across ticks: a fixed [:cap] slice would
+            # starve high-index groups forever under sustained load.
+            pos = int(np.searchsorted(due, self._ckpt_cursor, side="right"))
+            due = np.concatenate([due[pos:], due[:pos]])
+            due = due[:self.max_checkpoints_per_tick]
+        if len(due):
+            self._ckpt_cursor = int(due[-1])
+        # The tick thread only SERIALIZES the machine (single-writer rule:
+        # applies mutate it on this thread) and reads the snapshot term;
+        # the archive copy + rotation happen on the worker pool.  Bounded
+        # queue: when full, the remaining due groups simply stay due —
+        # backpressure, never loss — so maintenance can no longer own the
+        # tick latency (reference: checkpoints run on a bounded pool off
+        # the loop, RaftRoutine.java:46-49).
+        queued = False
+        for g in due.tolist():
+            if g in self._ckpt_inflight:
+                continue   # one save in flight per group (archive order)
+            with self._ckpt_cv:
+                if len(self._ckpt_queue) >= self.ckpt_queue_cap:
+                    self.metrics["ckpt_backpressure"] += 1
+                    break
+            try:
+                ckpt = self.dispatcher.machine(g).checkpoint(0)
+            except Exception:
+                log.exception("checkpoint failed g=%d", g)
+                continue
+            # Snapshot term = term of the log entry at the checkpoint index
+            # (a store read — tick thread only, like every store access).
+            t = self.store.entry_term(g, ckpt.index)
+            if t < 0:
+                t = self.store.floor_term(g)
+            self._ckpt_inflight.add(g)
+            with self._ckpt_cv:
+                # Capacity RE-checked in the same acquisition as the
+                # append: the pre-check above ran in an earlier cv block,
+                # and check-then-append across separate acquisitions is
+                # not atomic — the bound must hold at append time, never
+                # transiently overshoot.  A refused group stays due and
+                # retries next tick (backpressure, not loss).
+                full = len(self._ckpt_queue) >= self.ckpt_queue_cap
+                if not full:
+                    self._ckpt_queue.append((g, ckpt.path, ckpt.index, t))
+                    self._ckpt_cv.notify()
+                    queued = True
+            if full:
+                self._ckpt_inflight.discard(g)
+                self.metrics["ckpt_backpressure"] += 1
+                try:
+                    os.unlink(ckpt.path)
+                except OSError:
+                    pass
+                break
+        if queued:
+            self._ensure_ckpt_workers()
+        self._compact_grant = self.maintain.compact_targets(
+            now, self.h_commit.astype(np.int64), h_base.astype(np.int64))
+        self._maintain_gc(now)
+        if now % 32 == 0:
+            self._fold_wal_stats()
+        if self.scrub_interval_ticks \
+                and now % self.scrub_interval_ticks == 0:
+            self._scrub_archive()
+
+    def _fold_wal_stats(self) -> None:
+        """Fold the WAL engines' cumulative stage/fsync/pack counters
+        (native wal_stats() or the PyWal mirror — log/wal.py) into the
+        metrics registry as wal_* counters.  The engine counters never
+        reset; this keeps the last snapshot and folds deltas, so the
+        registry survives engine reopen (a fresh engine restarts at 0
+        and the max(0, ...) clamp drops the negative delta)."""
+        wal = getattr(self.store, "wal", None)
+        stats = getattr(wal, "stats", None)
+        if stats is None:
+            return
+        cur = stats()
+        last = self._wal_stat_last or {}
+        m = self.metrics
+        for k, v in cur.items():
+            m[f"wal_{k}"] += max(0, v - last.get(k, 0))
+        self._wal_stat_last = cur
+
+    def _scrub_archive(self) -> None:
+        """Background snapshot scrubber: one budgeted verify pass —
+        a few groups per interval, round-robin, newest snapshots first
+        (archive.scrub) — so a latent bit flip in an archived snapshot
+        is caught and quarantined BEFORE recovery or a lagging follower
+        would read it.  Runs on the tick thread against tiny per-group
+        budgets; the CRC walk is the cost of one extra file read."""
+        gs = self.archive.groups_with_snapshots(self.cfg.n_groups)
+        if not gs:
+            return
+        for _ in range(min(self.scrub_groups_per_pass, len(gs))):
+            g = gs[self._scrub_cursor % len(gs)]
+            self._scrub_cursor += 1
+            try:
+                ok, corrupt = self.archive.scrub(g, limit=2)
+            except OSError:
+                log.exception("snapshot scrub failed g=%d", g)
+                continue
+            self.metrics["scrub_ok"] += ok
+            self.metrics["scrub_corrupt"] += corrupt
+
+    def _ensure_ckpt_workers(self) -> None:
+        self._ckpt_threads = [t for t in self._ckpt_threads if t.is_alive()]
+        while len(self._ckpt_threads) < self.ckpt_workers:
+            t = threading.Thread(
+                target=self._ckpt_worker,
+                name=f"raft-ckpt-{self.node_id}-{len(self._ckpt_threads)}",
+                daemon=True)
+            t.start()
+            self._ckpt_threads.append(t)
+
+    def _ckpt_worker(self) -> None:
+        """Pool worker: archive machine checkpoints until shutdown (the
+        queue is drained even after _stop so no serialized temp file is
+        stranded un-archived)."""
+        while True:
+            with self._ckpt_cv:
+                while not self._ckpt_queue and not self._stop.is_set():
+                    self._ckpt_cv.wait(timeout=0.5)
+                if not self._ckpt_queue:
+                    return   # _stop set and nothing left
+                g, path, idx, term = self._ckpt_queue.popleft()
+            ok = True
+            try:
+                self.archive.save_checkpoint(g, path, idx, term)
+            except Exception:
+                log.exception("checkpoint archive failed g=%d", g)
+                ok = False
+            finally:
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+            with self._ckpt_cv:
+                self._ckpt_done.append((g, idx, ok))
+                self._ckpt_cv.notify_all()
+
+    def _maintain_gc(self, now: int) -> None:
+        """Physical WAL GC, three-phase so no tick stalls on the rewrite
+        (reference: RocksDB reclaims off the consensus path via deleteRange
+        + background compaction, command/storage/RocksLog.java:228-242)."""
+        if self._gc_phase == 2:       # worker done: bounded swap-in
+            try:
+                if self.store.gc_finish() == 0:
+                    self.metrics["wal_gc_runs"] += 1
+                else:
+                    self.store.gc_abort()
+            except Exception:
+                log.exception("WAL GC finish failed")
+                self.store.gc_abort()
+            self._gc_phase = 0
+            self._gc_thread = None
+            self.metrics.gauge("wal_segments", self.store.segment_count())
+        elif self._gc_phase == -1:    # worker failed: drop the attempt
+            self.store.gc_abort()
+            self._gc_phase = 0
+            self._gc_thread = None
+        elif (self._gc_phase == 0 and self.wal_gc_check_ticks
+              and now % self.wal_gc_check_ticks == 0):
+            try:
+                if not self.store.should_gc(self.wal_gc_ratio,
+                                            self.wal_gc_min_bytes):
+                    return
+                if self.store.gc_begin() < 0:
+                    return
+            except Exception:
+                log.exception("WAL GC begin failed")
+                return
+            self._gc_phase = 1
+            self._gc_thread = threading.Thread(
+                target=self._gc_worker,
+                name=f"raft-walgc-{self.node_id}", daemon=True)
+            self._gc_thread.start()
+
+    def _gc_worker(self) -> None:
+        try:
+            ok = self.store.gc_rewrite() >= 0
+        except Exception:
+            log.exception("WAL GC rewrite failed")
+            ok = False
+        # Handoff: the tick thread performs finish/abort (single-writer
+        # rule — the worker never touches live engine state).
+        self._gc_phase = 2 if ok else -1
+
+    # -------------------------------------------------------------- snapshot
+
+    def _serve_snapshot(self, group: int, index: int, term: int
+                        ) -> Optional[Tuple[int, int, str]]:
+        """Transport callback: serve our newest snapshot for the group
+        (reference EventBus WaitSnap -> TransSnap + sendfile,
+        transport/EventBus.java:98-111).  Returns (index, term, path); the
+        transport streams the file in chunks, so snapshot size is
+        unbounded by the frame codec's MAX_BODY."""
+        snap = self.archive.last_snapshot(group)
+        if snap is None or not os.path.exists(snap.path):
+            return None
+        if self.archive.verify_snapshot(snap.path) == "corrupt":
+            # Never propagate a corrupt milestone to a follower; the
+            # scrubber (tick thread) will quarantine it — this callback
+            # runs on a transport thread and only reads.
+            log.error("node %d: refusing to serve corrupt snapshot %s",
+                      self.node_id, snap.path)
+            return None
+        return snap.index, snap.term, snap.path
+
+    def _snapshot_requests(self, info: StepInfo, h_base) -> None:
+        req = np.nonzero(np.asarray(info.snap_req))[0]
+        queued = False
+        for g in req.tolist():
+            g = int(g)
+            if g in self._snap_inflight:
+                continue
+            idx = int(np.asarray(info.snap_req_idx)[g])
+            term = int(np.asarray(info.snap_req_term)[g])
+            peer = int(np.asarray(info.snap_req_from)[g])
+            if self.archive.pend_snapshot(g, idx, term, peer) is None:
+                continue
+            # The offer's config word (is_conf) rides to install time: it
+            # becomes the installer's base_conf via HostInbox.snap_conf.
+            self._snap_conf[g] = (idx,
+                                  int(np.asarray(info.snap_req_conf)[g]))
+            with self._snap_cv:
+                self._snap_inflight.add(g)
+                self._snap_queue.append(
+                    (self._snap_epoch.get(g, 0), g, peer, idx, term))
+                queued = True
+        if queued:
+            with self._snap_cv:
+                self._snap_cv.notify_all()
+            # Lazily grow the pool up to the bound (reference: one snapshot
+            # IO thread; here a small pool, NettyCluster.java:42-43).
+            self._snap_threads = [t for t in self._snap_threads
+                                  if t.is_alive()]
+            while len(self._snap_threads) < self.snap_fetch_workers:
+                t = threading.Thread(
+                    target=self._snap_worker,
+                    name=f"raft-snapfetch-{self.node_id}-"
+                         f"{len(self._snap_threads)}", daemon=True)
+                t.start()
+                self._snap_threads.append(t)
+
+    def _snap_worker(self) -> None:
+        """Pool worker: drain queued snapshot fetches until node shutdown.
+        A fetch queued before a lane purge (stale epoch) or whose lane is
+        no longer marked in flight is skipped."""
+        while True:
+            with self._snap_cv:
+                while not self._snap_queue and not self._stop.is_set():
+                    self._snap_cv.wait(timeout=0.5)
+                if self._stop.is_set():
+                    return
+                ep, g, peer, idx, term = self._snap_queue.popleft()
+                if (ep != self._snap_epoch.get(g, 0)
+                        or g not in self._snap_inflight):
+                    continue
+            self._download_snapshot(g, peer, idx, term, ep)
+
+    def _download_snapshot(self, g: int, peer: int, idx: int,
+                           term: int, ep: int) -> None:
+        """Worker: fetch ONE snapshot's bytes to a temp file (reference
+        SnapChannel download, transport/EventNode.java:122-267).  Install —
+        every store/dispatcher/archive mutation — happens on the tick
+        thread in ``_install_snapshots``.
+
+        ``ep`` is the lane's fetch epoch at dispatch: if a purge bumped it
+        while the fetch was in flight, this download belongs to a dead
+        incarnation — it must neither surface its bytes, nor fail the NEW
+        incarnation's pending, nor cancel its in-flight marker."""
+        tmp = os.path.join(self.data_dir, f"snap-recv-g{g}-e{ep}.tmp")
+        ok = False
+
+        def current() -> bool:
+            return ep == self._snap_epoch.get(g, 0)
+
+        try:
+            res = self.transport.fetch_snapshot(peer, g, idx, term, tmp)
+            with self._snap_cv:
+                if res is None or self._stop.is_set() or not current():
+                    if current():
+                        self.archive.fail_pending(g)
+                    return
+                got_idx, got_term = res
+                self._snap_fetched.append((g, got_idx, got_term, tmp))
+                ok = True
+        except Exception:
+            log.exception("snapshot fetch failed g=%d", g)
+            with self._snap_cv:
+                if current():
+                    self.archive.fail_pending(g)
+        finally:
+            if not ok:
+                # Every failure path drops the partial download.
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+            with self._snap_cv:
+                if current():
+                    self._snap_inflight.discard(g)
+
+    def _install_snapshots(self, fetched) -> List[Tuple[int, int, int]]:
+        """Tick thread: install downloaded snapshots (reference
+        restoreCheckpoint, context/RaftRoutine.java:482-541).  Applies and
+        installs run on the same thread, so the reference's halt-the-apply-
+        pool dance is unnecessary by construction."""
+        done = []
+        for g, got_idx, got_term, tmp in fetched:
+            try:
+                # The lane may have been closed/destroyed while the fetch
+                # was in flight (purge clears archive pending): discard.
+                if not self.h_active[g] or self.archive.pending(g) is None:
+                    try:
+                        os.unlink(tmp)
+                    except OSError:
+                        pass
+                    continue
+                snap = self.archive.install_pending(g, tmp, got_idx, got_term)
+                self.dispatcher.resume_from(
+                    g, Checkpoint(path=snap.path, index=snap.index))
+                # The offered config applies only if the downloaded
+                # snapshot IS the offered milestone (the server may have
+                # rotated to a newer one, whose config we do not know —
+                # then base_conf stays and AE adoption corrects it).
+                pend = self._snap_conf.pop(g, None)
+                cw = pend[1] if pend is not None \
+                    and pend[0] == snap.index else 0
+                # Durable milestone before the device adopts it (the stable-
+                # record rule for snapshots, support/StableLock.java:82-91).
+                if getattr(self.store, "put_conf", None) is not None:
+                    self.store.set_floor(g, snap.index, snap.term,
+                                         conf_word=cw)
+                else:
+                    self.store.set_floor(g, snap.index, snap.term)
+                self._wal_floor[g] = max(self._wal_floor[g], snap.index)
+                self._durable_tail_m[g] = max(self._durable_tail_m[g],
+                                              snap.index)
+                try:
+                    self._barrier()   # poisoned stripes carved out
+                    self._barrier_ok()
+                except (WalNoSpace, WalSyncError):
+                    # Keep the flush pending; the installed archive file
+                    # itself is already durable, so the retried fetch
+                    # (device re-requests) converges once space frees.
+                    self._sync_pending = True
+                    raise
+                self.maintain.note_checkpoint(g, self.ticks, snap.index)
+                self.metrics["snapshots_installed"] += 1
+                done.append((g, snap.index, snap.term, cw))
+            except Exception:
+                log.exception("snapshot install failed g=%d", g)
+                self.archive.clear_pending(g)
+            finally:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+        return done
+
+    # -------------------------------------------------------------- recovery
+
+    def _recover_machines(self) -> None:
+        """Boot-time machine catch-up: if a machine lags the newest archived
+        snapshot (or the WAL floor — entries below it are gone), recover it
+        from the snapshot before applies start (reference bootstrap replay,
+        command/admin/Administrator.java:44-57 analog).
+
+        Visits only the groups the archive actually holds snapshots for
+        (ONE root listdir) — the ``range(n_groups)`` walk cost 100k
+        ``last_snapshot`` probes on a cold start, and each probe CREATED
+        the group's directory as a side effect (100k mkdirs for a node
+        that never checkpointed)."""
+        for g in self.archive.groups_with_snapshots(self.cfg.n_groups):
+            # Verify-on-recovery: a corrupt newest milestone is
+            # quarantined and the walk falls back to the previous one —
+            # WAL replay above the older snapshot restores the rest
+            # (the store keeps entries above ITS floor, which only ever
+            # advanced to milestones whose archive copy was durable).
+            snap = self.archive.verified_last_snapshot(g)
+            if snap is None:
+                continue
+            m = self.dispatcher.machine(g)
+            if m.last_applied() < snap.index:
+                m.recover(Checkpoint(path=snap.path, index=snap.index))

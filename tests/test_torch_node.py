@@ -1,0 +1,441 @@
+"""The port's node runtime (``RaftNode`` + WAL + loopback transport +
+``LocalCluster``) on the CPU, against the JAX package's.
+
+* Lockstep parity: a JAX ``LocalCluster`` and the port's run one scripted
+  scenario (``rafting_tpu_torch/testkit/lockstep.py``) round by round at
+  64 groups x 3 nodes, with the durable pipeline off and on: the host
+  mirrors of every node are equal at every round, the machine files are
+  byte-equal and every node's WAL exports the same state.
+* The scenarios of ``tests/test_node_runtime.py`` on the port.
+* One linearizable read through ``RaftNode.read``, port against JAX.
+* WAL interchange: a WAL written by one package restores lane for lane
+  the same in the other (a group with a gap takes the slow-scan branch).
+* Guards: the copied host-tier modules stay byte-equal to the reference,
+  the port imports without jax, and the entry points refuse to drift to
+  the CPU.
+
+Every port object runs with ``device="cpu"``.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from rafting_tpu.api import anomaly as jax_anomaly
+from rafting_tpu.core.types import EngineConfig as JaxEngineConfig
+from rafting_tpu.log.store import LogStore as JaxLogStore
+from rafting_tpu.log.store import restore_raft_state as jax_restore
+from rafting_tpu.testkit.harness import LocalCluster as JaxLocalCluster
+from rafting_tpu_torch import EngineConfig, LocalCluster, RaftNode
+from rafting_tpu_torch.api import anomaly as port_anomaly
+from rafting_tpu_torch.api.anomaly import BatchAbortedError, NotLeaderError
+from rafting_tpu_torch.bridge import state_to_numpy
+from rafting_tpu_torch.log.store import LogStore
+from rafting_tpu_torch.log.store import restore_raft_state
+from rafting_tpu_torch.snapshot.policy import MaintainAgreement
+from rafting_tpu_torch.testkit.lockstep import PINNED_ENV, run_script
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CFG_KW = dict(n_groups=4, n_peers=3, log_slots=32, batch=4, max_submit=4,
+              election_ticks=10, heartbeat_ticks=3, rpc_timeout_ticks=8)
+CFG = EngineConfig(**CFG_KW)
+LOCKSTEP_KW = dict(CFG_KW, n_groups=64)
+
+
+def _cluster(tmp_path, cfg=CFG, **kw):
+    return LocalCluster(cfg, str(tmp_path), device="cpu", **kw)
+
+
+# -------------------------------------------------------- lockstep parity --
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_lockstep_parity_with_jax(tmp_path, monkeypatch, pipeline):
+    for k, v in PINNED_ENV.items():
+        monkeypatch.setenv(k, v)
+    G, L = LOCKSTEP_KW["n_groups"], LOCKSTEP_KW["log_slots"]
+    jc = JaxLocalCluster(JaxEngineConfig(**LOCKSTEP_KW),
+                         str(tmp_path / "jax"), pipeline=pipeline)
+    tc = LocalCluster(EngineConfig(**LOCKSTEP_KW), str(tmp_path / "port"),
+                      pipeline=pipeline, device="cpu")
+    try:
+        r = run_script([jc, tc])
+        assert len(r["acked"]) == 2 * 2 * G   # every submission acked
+        assert sum(len(b) for b in r["files"].values()) > 0
+        for i in jc.nodes:
+            a = jc.nodes[i].store.export_state(G, L)
+            b = tc.nodes[i].store.export_state(G, L)
+            assert sorted(a) == sorted(b)
+            for k in a:
+                assert a[k].dtype == b[k].dtype, k
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    finally:
+        jc.close()
+        tc.close()
+
+
+# ------------------------------------ the scenarios of test_node_runtime --
+
+def _elect_submit_apply(c):
+    c.wait_leader(0)
+    res = c.submit_via_leader(0, b"hello-0")
+    assert res == len(c.machine_lines(c.leader_of(0), 0))
+    for k in range(1, 6):
+        c.submit_via_leader(0, f"cmd-{k}".encode())
+    c.tick(10)
+    c.assert_file_parity(0)
+    for i in c.nodes:
+        cmds = c.command_payloads(i, 0)
+        assert len(cmds) == 6
+        assert cmds[0] == "hello-0"
+
+
+def _not_leader(c):
+    lead = c.wait_leader(0)
+    follower = next(i for i in c.nodes if i != lead)
+    fut = c.nodes[follower].submit(0, b"nope")
+    assert isinstance(fut.exception(timeout=1), NotLeaderError)
+
+
+def _failover_and_restart(c):
+    lead = c.wait_leader(0)
+    for k in range(4):
+        c.submit_via_leader(0, f"before-{k}".encode())
+    c.tick(5)
+    c.kill_node(lead)
+    new_lead = c.wait_leader(0)
+    assert new_lead != lead
+    for k in range(4):
+        c.submit_via_leader(0, f"after-{k}".encode())
+    c.restart_node(lead)
+    c.tick_until(lambda: len(c.command_lines(lead, 0)) == 8, 600,
+                 "restarted node catch-up")
+    c.assert_file_parity(0)
+    assert c.command_payloads(lead, 0) == \
+        [f"before-{k}" for k in range(4)] + [f"after-{k}" for k in range(4)]
+
+
+def _multi_group_independence(c):
+    for g in range(CFG.n_groups):
+        c.wait_leader(g)
+    for g in range(CFG.n_groups):
+        c.submit_via_leader(g, f"g{g}-x".encode())
+    c.tick(10)
+    for g in range(CFG.n_groups):
+        c.assert_file_parity(g)
+        assert c.command_payloads(c.leader_of(g), g) == [f"g{g}-x"]
+
+
+def _submit_batch_in_order(c):
+    lead = c.wait_leader(0)
+    n = c.nodes[lead]
+    c.tick_until(lambda: n.is_ready(0), 100, "leader ready")
+    fut = n.submit_batch(0, [f"b-{k}".encode() for k in range(3)])
+    c.tick_until(fut.done, 200, "batch committed")
+    results = fut.result()
+    assert results == sorted(results) and len(results) == 3
+    c.tick(10)
+    c.assert_file_parity(0)
+    other = next(i for i in range(3) if i != lead)
+    assert isinstance(c.nodes[other].submit_batch(0, [b"x"]).exception(),
+                      NotLeaderError)
+    assert n.submit_batch(0, []).result() == []
+
+
+def _submit_batch_fails_wholesale(c):
+    lead = c.wait_leader(0)
+    n = c.nodes[lead]
+    c.tick_until(lambda: n.is_ready(0), 100, "leader ready")
+    c.net.partition([[lead], [i for i in range(3) if i != lead]])
+    fut = n.submit_batch(0, [b"doomed-1", b"doomed-2"])
+    c.tick(40)
+    assert not fut.done()
+    c.net.heal()
+    c.tick_until(fut.done, 400, "batch aborted on step-down")
+    err = fut.exception()
+    assert isinstance(err, BatchAbortedError)
+    assert err.completed == [False, False]
+    assert err.cause is not None
+
+
+def _snapshot_install(tmp_path):
+    """A follower behind the compaction floor catches up through a
+    snapshot install (the aggressive MaintainAgreement)."""
+    cfg = EngineConfig(n_groups=2, n_peers=3, log_slots=16, batch=4,
+                       max_submit=4, election_ticks=10, heartbeat_ticks=3)
+    aggressive = lambda: MaintainAgreement(
+        cfg.n_groups, state_change_threshold=2, dirty_log_tolerance=1,
+        snap_min_interval=2, compact_min_interval=2, compact_slack=2)
+    c = _cluster(tmp_path, cfg, maintain_factory=aggressive)
+    try:
+        lead = c.wait_leader(0)
+        victim = next(i for i in c.nodes if i != lead)
+        c.kill_node(victim)
+        victim_tail = len(c.machine_lines(victim, 0))
+        k = 0
+        while k < 30 or not all(
+                n.h_base[0] > victim_tail for n in c.nodes.values()):
+            c.submit_via_leader(0, f"deep-{k}".encode())
+            c.tick(3)
+            k += 1
+            assert k < 200, "compaction floor never passed victim tail"
+        c.tick(30)
+        c.restart_node(victim)
+        c.tick_until(lambda: len(c.machine_lines(victim, 0)) >= k,
+                     800, "snapshot catch-up")
+        c.assert_file_parity(0)
+        assert any(n.metrics["snapshots_installed"] > 0
+                   for n in c.nodes.values())
+    finally:
+        c.close()
+
+
+def _full_cluster_restart(tmp_path):
+    c = _cluster(tmp_path)
+    try:
+        c.wait_leader(0)
+        for k in range(5):
+            c.submit_via_leader(0, f"persist-{k}".encode())
+        c.tick(10)
+    finally:
+        c.close()
+    c2 = _cluster(tmp_path)
+    try:
+        c2.wait_leader(0)
+        c2.tick(20)
+        c2.assert_file_parity(0)
+        res = c2.submit_via_leader(0, b"persist-5")
+        assert res == len(c2.machine_lines(c2.leader_of(0), 0))
+        assert c2.command_payloads(c2.leader_of(0), 0)[-1] == "persist-5"
+    finally:
+        c2.close()
+
+
+def _profiled(tmp_path):
+    """RaftNode.profile_ticks captures ticks through torch.profiler and
+    writes one chrome trace when the armed budget runs out."""
+    c = _cluster(tmp_path / "c")
+    try:
+        c.nodes[0].profile_ticks(str(tmp_path / "prof"), n_ticks=2)
+        c.tick(3)
+        traces = os.listdir(tmp_path / "prof")
+        assert len(traces) == 1 and traces[0].endswith(".json")
+        assert os.path.getsize(tmp_path / "prof" / traces[0]) > 0
+    finally:
+        c.close()
+
+
+# Scenarios on one 4-group cluster, and those that build their own.
+SCENARIOS = {
+    "elect_submit_apply": _elect_submit_apply,
+    "not_leader": _not_leader,
+    "failover_and_restart": _failover_and_restart,
+    "multi_group_independence": _multi_group_independence,
+    "submit_batch_in_order": _submit_batch_in_order,
+    "submit_batch_fails_wholesale": _submit_batch_fails_wholesale,
+}
+OWN_CLUSTER = {
+    "snapshot_install": _snapshot_install,
+    "full_cluster_restart": _full_cluster_restart,
+    "tick_profiler": _profiled,
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS) + sorted(OWN_CLUSTER))
+def test_node_scenario(tmp_path, name):
+    if name in OWN_CLUSTER:
+        OWN_CLUSTER[name](tmp_path)
+        return
+    c = _cluster(tmp_path)
+    try:
+        SCENARIOS[name](c)
+    finally:
+        c.close()
+
+
+# ------------------------------------------------------- linearizable read --
+
+def _read_script(lc, anomaly):
+    """test_read_runtime.py's flow on a FileMachine cluster (no read SPI:
+    a read resolves to its quorum-confirmed ReadIndex); ``anomaly`` is
+    the cluster's package's error module."""
+    lead = lc.wait_leader(0)
+    node = lc.nodes[lead]
+    lc.tick_until(lambda: node.is_ready(0), what="leader ready")
+    wf = node.submit(0, b"w-1")
+    lc.tick_until(wf.done, what="write applied")
+    tail = node.store.tail(0)
+    rf = node.read(0, b"q")
+    lc.tick_until(rf.done, what="read served")
+    refused = lc.nodes[(lead + 1) % 3].read(0, b"q").exception()
+    assert isinstance(refused, anomaly.NotLeaderError)
+    assert anomaly.is_refusal(refused)
+    assert node.store.tail(0) == tail    # reads never grow the log
+    return wf.result(), rf.result(), node.metrics["reads_served"]
+
+
+def test_linearizable_read_matches_jax(tmp_path, monkeypatch):
+    for k, v in PINNED_ENV.items():
+        monkeypatch.setenv(k, v)
+    jc = JaxLocalCluster(JaxEngineConfig(**CFG_KW), str(tmp_path / "jax"))
+    try:
+        want = _read_script(jc, jax_anomaly)
+    finally:
+        jc.close()
+    tc = _cluster(tmp_path / "port")
+    try:
+        got = _read_script(tc, port_anomaly)
+    finally:
+        tc.close()
+    assert got == want
+    w, r, served = got
+    assert r >= w and served >= 1
+
+
+# ---------------------------------------------------------- WAL interchange --
+
+def _write_wal(kind, root):
+    """Run a cluster of one package, then give group 3 of node 0 a WAL
+    with a hole above its tail (the slow-scan branch of restore)."""
+    if kind == "jax":
+        c = JaxLocalCluster(JaxEngineConfig(**CFG_KW), root)
+        Store = JaxLogStore
+    else:
+        c = LocalCluster(CFG, root, device="cpu")
+        Store = LogStore
+    try:
+        for g in range(CFG.n_groups):
+            c.submit_via_leader(g, f"g{g}".encode())
+        c.tick(5)
+    finally:
+        c.close()
+    st = Store(os.path.join(root, "node0", "wal"), shards=4)
+    try:
+        tail = st.tail(3)
+        st.append_entries(3, tail + 2, [1, 1], [b"past-the-hole"] * 2)
+        st.sync()
+    finally:
+        st.close()
+
+
+def _assert_state_equal(port, ref, path="state"):
+    for name, v in port.items():
+        r = getattr(ref, name)
+        if isinstance(v, dict):
+            _assert_state_equal(v, r, f"{path}.{name}")
+        elif v is None:
+            assert r is None, f"{path}.{name}"
+        else:
+            r = np.asarray(r)
+            assert v.dtype == r.dtype and v.shape == r.shape, \
+                f"{path}.{name}: {v.dtype}{v.shape} vs {r.dtype}{r.shape}"
+            np.testing.assert_array_equal(v, r, err_msg=f"{path}.{name}")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_wal_interchange(tmp_path, writer):
+    _write_wal(writer, str(tmp_path / "w"))
+    for i in range(CFG.n_peers):
+        src = tmp_path / "w" / f"node{i}" / "wal"
+        shutil.copytree(src, tmp_path / f"j{i}")
+        shutil.copytree(src, tmp_path / f"t{i}")
+        js = JaxLogStore(str(tmp_path / f"j{i}"), shards=4)
+        ts = LogStore(str(tmp_path / f"t{i}"), shards=4)
+        try:
+            G, L = CFG.n_groups, CFG.log_slots
+            if i == 0:
+                ex = ts.export_state(G, L)
+                assert ex["live_count"][3] != ex["tail"][3] - ex["floor"][3]
+            want = jax_restore(JaxEngineConfig(**CFG_KW), i, js, seed=0)
+            got = restore_raft_state(CFG, i, ts, seed=0, device="cpu")
+            assert got.term.device.type == "cpu"
+            _assert_state_equal(state_to_numpy(got),
+                                jax.tree.map(np.asarray, want))
+            a, b = js.export_state(G, L), ts.export_state(G, L)
+            for k in a:     # the repair of the hole, too
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        finally:
+            js.close()
+            ts.close()
+
+
+# ------------------------------------------------------------------ guards --
+
+# Modules the port copies from the reference byte for byte.
+COPIES = [
+    "utils/__init__.py", "utils/crc32c.py", "utils/iofault.py",
+    "utils/metrics.py", "utils/latency.py", "utils/health.py",
+    "utils/heat.py", "api/anomaly.py", "api/serial.py",
+    "transport/__init__.py", "transport/faults.py", "transport/inbox.py",
+    "transport/loopback.py", "transport/tcp.py", "machine/spi.py",
+    "machine/dispatch.py", "machine/file_machine.py", "log/wal.py",
+    "log/native/wal.cpp", "snapshot/__init__.py", "snapshot/archive.py",
+    "snapshot/policy.py", "runtime/__init__.py", "runtime/admission.py",
+    "runtime/txn.py", "runtime/obsrv.py", "testkit/fixtures.py",
+]
+# Copies with named edits: the file outside these top-level functions
+# equals the reference.
+EDITED = {"utils/tracelog.py": ["trace_to_numpy"],
+          "transport/codec.py": ["messages_template"]}
+
+
+def _read(pkg, rel):
+    with open(os.path.join(REPO, pkg, rel), "rb") as f:
+        return f.read()
+
+
+def _cut(src: bytes, names) -> bytes:
+    for name in names:
+        m = re.search(rb"^def " + name.encode() + rb"\b.*?(?=^\S|\Z)", src,
+                      re.S | re.M)
+        assert m, name
+        src = src[:m.start()] + src[m.end():]
+    return src
+
+
+@pytest.mark.parametrize("rel", COPIES + sorted(EDITED))
+def test_copied_module_matches_reference(rel):
+    port, ref = _read("rafting_tpu_torch", rel), _read("rafting_tpu", rel)
+    names = EDITED.get(rel)
+    if names:
+        assert port != ref
+        port, ref = _cut(port, names), _cut(ref, names)
+    assert port == ref, f"rafting_tpu_torch/{rel} drifted from the reference"
+
+
+def test_runtime_imports_without_jax():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'rafting_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import rafting_tpu_torch.runtime.node\n"
+        "import rafting_tpu_torch.testkit.harness\n"
+        "import rafting_tpu_torch.transport\n"
+        "import rafting_tpu_torch.log.store\n"
+        "import rafting_tpu_torch.utils.profiling\n"
+        "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
+        "       m.split('.')[0] in ('jax', 'flax', 'rafting_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("entry", ["RaftNode", "LocalCluster"])
+def test_entry_points_need_a_card(tmp_path, monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        if entry == "LocalCluster":
+            LocalCluster(CFG, str(tmp_path))
+        else:
+            RaftNode(CFG, 0, str(tmp_path), None, None)
