@@ -53,16 +53,39 @@ no result line):
              commits, payload agreement and every acknowledged submission
              read back on 512 seeded groups, one kernel launch per node
              tick.
-9. profile — only with --profile: 8 headline ticks, then 8 nemesis ticks
+9. api-testnode — BASELINE.json configs[0], the reference's TestNode1-3
+             procedure: three `python -m rafting_tpu_torch.tools.noderun`
+             processes on the card (XML defaults, three free localhost
+             ports), each executing through its own stub every 10 ms; 20 s
+             of load, SIGKILL of the leader's process, a restart from its
+             data dir, 20 s more, SIGTERM.  Every acknowledged payload is
+             in the machine file exactly once, the files are byte-equal up
+             to trailing election no-ops, testkit.logcheck finds no
+             divergence, the survivors exit 0, and every process held the
+             card.
+10. api-1k — BASELINE.json configs[1]: 1,000 groups through three
+             RaftContainers in this process over localhost TCP, the KV
+             machine, PreVote off; waves of two sets and one linearizable
+             get per group through the stub on container g mod 3, each
+             wave issued in full.  A set and a get are acknowledged in at
+             least 20% of the groups and one forwarded group in every
+             measured wave, and over the measured waves in 90% of the
+             groups and of the forwarded ones; every
+             acknowledged set reads back on all three nodes,
+             linz.check passes on 64 sampled groups, no snapshot is taken,
+             and every node tick launched the kernel once.
+11. profile — only with --profile: 8 headline ticks, then 8 nemesis ticks
              inside the split-brain window, under torch.profiler: the top
              kernels by device time and the device-busy share.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; before it, one JSON line lists each kernel with its launches
-on the path that launched it (the quorum kernel three times: P=3 on the
+on the path that launched it (the quorum kernel four times: P=3 on the
 headline path, P=5 on the nemesis path, P=3 at N=1 per node tick on the
-runtime path), its error against the plain
-version, its time, the plain version's time and its bound.  The last line is the result object.
+runtime path and on the api-1k path), its error against the plain
+version, its time, the plain version's time and its bound.  The last line
+is the result object.  ``[mem]`` lines give the process's resident memory
+and threads between phases.
 """
 
 from __future__ import annotations
@@ -71,6 +94,7 @@ import dataclasses
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -85,6 +109,38 @@ INT_OPS_PER_S = 67e12            # vector (non-tensor-core) rate, 32-bit lanes
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _mem() -> str:
+    """This process's resident memory, now (where /proc reports it) and at
+    its peak, and its Python thread count."""
+    import resource
+    import threading
+    now = "not reported"
+    try:
+        with open("/proc/self/status") as st:
+            for ln in st:
+                if ln.startswith("VmRSS:"):
+                    now = f"{int(ln.split()[1]) / 2**20:.2f} GiB"
+    except OSError:
+        pass
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    return (f"rss {now} (peak {peak:.2f} GiB), "
+            f"{threading.active_count()} threads")
+
+
+def _release_host_memory() -> None:
+    """Hand freed host memory back before the API phases start their
+    thousands of threads: the collector, the CUDA caches (pinned host
+    blocks included) and the C heap."""
+    import ctypes
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 def phase_probe() -> str:
@@ -730,6 +786,557 @@ def phase_runtime() -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# [api-testnode]: BASELINE.json configs[0], the reference's TestNode1-3
+# procedure (rafting_tpu_torch/tools/noderun.py): three node processes on
+# the card, each loading through its own stub; the leader's process is
+# killed and restarted from its data dir between two load windows.
+TESTNODE_LOAD_S = 20.0
+TESTNODE_XML = """<raft>
+  <cluster>
+    <local>{local}</local>
+    <remote>{r0}</remote>
+    <remote>{r1}</remote>
+  </cluster>
+  <storage dir="{dir}"/>
+</raft>
+"""
+
+
+class _NodeProc:
+    """One ``python -m rafting_tpu_torch.tools.noderun`` process (no
+    ``--device``: it runs on the card); a thread collects its output."""
+
+    def __init__(self, xml: str):
+        import threading
+        env = dict(os.environ)
+        env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+        self.p = subprocess.Popen(
+            [sys.executable, "-m", "rafting_tpu_torch.tools.noderun", xml],
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines: list = []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for ln in self.p.stdout:
+            self.lines.append(ln.rstrip("\n"))
+
+    def ready(self) -> bool:
+        return any(ln.startswith("READY") for ln in self.lines)
+
+    def tail(self) -> str:
+        return "\n".join(self.lines[-25:])
+
+
+def _smi_pids() -> set:
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+
+
+def _holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has the card's device node open."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia") and target[11:].isdigit():
+            return True
+    return False
+
+
+def _until(pred, what: str, timeout: float, poll=None) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} not reached in {timeout:.0f}s")
+        if poll is not None:
+            poll()
+        time.sleep(0.05)
+
+
+def phase_api_testnode() -> None:
+    import tempfile
+    from rafting_tpu_torch.testkit.harness import free_ports
+    from rafting_tpu_torch.testkit.logcheck import check_logs
+
+    root = tempfile.mkdtemp(prefix="testnode-")
+    uris = [f"raft://127.0.0.1:{p}" for p in free_ports(3)]
+    xmls, dirs = [], []
+    for i in range(3):
+        others = [u for j, u in enumerate(uris) if j != i]
+        dirs.append(os.path.join(root, f"node{i}"))
+        xmls.append(os.path.join(root, f"node{i}.xml"))
+        with open(xmls[-1], "w") as f:
+            f.write(TESTNODE_XML.format(local=uris[i], r0=others[0],
+                                        r1=others[1], dir=dirs[-1]))
+    seen, on_card, pids = set(), set(), []
+    procs: list = []
+
+    def acked(i: int) -> int:
+        path = os.path.join(dirs[i], "acked.txt")
+        if not os.path.exists(path):
+            return 0
+        with open(path) as f:
+            return sum(1 for _ in f)
+
+    def poll_smi():
+        seen.update(_smi_pids())
+        on_card.update(p.p.pid for p in procs
+                       if p.p.poll() is None and _holds_card(p.p.pid))
+
+    def load(seconds: float) -> None:
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            poll_smi()
+            time.sleep(1.0)
+
+    try:
+        t0 = time.perf_counter()
+        procs = [_NodeProc(x) for x in xmls]
+        pids += [p.p.pid for p in procs]
+        _until(lambda: all(p.ready() for p in procs), "three nodes READY",
+               300, poll_smi)
+        ready_s = time.perf_counter() - t0
+        a0 = [acked(i) for i in range(3)]
+        load(TESTNODE_LOAD_S)
+        a1 = [acked(i) for i in range(3)]
+
+        def leader():
+            for i in range(3):
+                try:
+                    with open(os.path.join(dirs[i], "status.json")) as f:
+                        st = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                if st.get("leader") and procs[i].p.poll() is None:
+                    return i
+            return None
+        _until(lambda: leader() is not None, "a node reporting leader", 60)
+        victim = leader()
+        procs[victim].p.kill()
+        t_kill = time.perf_counter()
+        procs[victim].p.wait(timeout=60)
+        survivors = [i for i in range(3) if i != victim]
+        base = sum(acked(i) for i in survivors)
+        _until(lambda: sum(acked(i) for i in survivors) > base,
+               "an acknowledgement after the kill", 120)
+        first_ack_s = time.perf_counter() - t_kill
+        procs[victim] = _NodeProc(xmls[victim])
+        pids.append(procs[victim].p.pid)
+        _until(procs[victim].ready, "the restarted node READY", 300,
+               poll_smi)
+        a2 = [acked(i) for i in range(3)]
+        load(TESTNODE_LOAD_S)
+        a3 = [acked(i) for i in range(3)]
+        for p in procs:
+            p.p.send_signal(signal.SIGTERM)
+        codes = [p.p.wait(timeout=120) for p in procs]
+        if any(codes):
+            raise AssertionError(
+                f"noderun exit codes {codes}:\n" + "\n---\n".join(
+                    p.tail() for p in procs))
+        # nvidia-smi lists compute processes by the host's pids; inside a
+        # PID namespace it lists none of ours, so the device node each
+        # process holds open is the evidence there.
+        missing = [pid for pid in pids if pid not in seen | on_card]
+        if missing:
+            raise AssertionError(
+                f"node pids {missing} never seen on the card (nvidia-smi "
+                f"listed {sorted(seen)}; /dev/nvidiaN held by "
+                f"{sorted(on_card)})")
+        # The reference's oracle (tests/test_system_tcp.py): byte-equal
+        # files up to trailing election no-ops, which survivors append
+        # when the processes stop one after another.
+        files, noops = [], []
+        for d in dirs:
+            with open(os.path.join(d, "machines", "group_1.txt"), "rb") as f:
+                lines = f.read().splitlines(keepends=True)
+            n = len(lines)
+            while lines and lines[-1].rstrip(b"\n").endswith(b":"):
+                lines.pop()
+            noops.append(n - len(lines))
+            files.append(b"".join(lines))
+        if not files[0] == files[1] == files[2]:
+            tails = [f.splitlines()[-3:] for f in files]
+            raise AssertionError(f"the three machine files differ: "
+                                 f"lengths {[len(f) for f in files]}, "
+                                 f"tails {tails}")
+        body: dict = {}
+        for ln in files[0].decode().splitlines():
+            payload = ln.split(":", 1)[1]
+            body[payload] = body.get(payload, 0) + 1
+        n_acked = 0
+        for d in dirs:
+            with open(os.path.join(d, "acked.txt")) as f:
+                for payload in f.read().split():
+                    if body.get(payload) != 1:
+                        raise AssertionError(
+                            f"acknowledged {payload} is in the machine file "
+                            f"{body.get(payload, 0)} times")
+                    n_acked += 1
+        divs = check_logs([os.path.join(d, "wal") for d in dirs])
+        if divs:
+            raise AssertionError(f"log divergence: {divs[:5]}")
+        rates = [((a1[i] - a0[i]) / TESTNODE_LOAD_S,
+                  (a3[i] - a2[i]) / TESTNODE_LOAD_S) for i in range(3)]
+        log(f"[api-testnode] BASELINE configs[0]: 3 noderun processes on the "
+            f"card (pids {pids}; nvidia-smi listed "
+            f"{sorted(set(pids) & seen)}, /dev/nvidiaN open in "
+            f"{sorted(set(pids) & on_card)}), READY after "
+            f"{ready_s:.1f}s; acked commands/s per node before / after the "
+            f"kill: " + ", ".join(f"node{i} {a:.2f} / {b:.2f}"
+                                  for i, (a, b) in enumerate(rates))
+            + f"; killed the leader node{victim}, first acknowledgement "
+            f"{first_ack_s:.2f}s after the kill; {n_acked} acknowledged "
+            f"payloads each in the machine file once, "
+            f"{len(files[0].splitlines())} lines byte-equal on 3 nodes "
+            f"(trailing no-ops {noops}), check_logs clean")
+    finally:
+        for p in procs:
+            if p.p.poll() is None:
+                p.p.kill()
+                p.p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# [api-1k]: BASELINE.json configs[1] (Multi-Raft 1k groups, 3 peers,
+# AppendEntries only: PreVote off, no snapshot in the window) through
+# three RaftContainers on the card over localhost TCP.  Two fields move off
+# the defaults (PERF.md §4): tick_ms is 250, not 20, since the three nodes
+# share one process, where a tick takes longer than 3 x 20 ms, and a loop
+# slower than 3 x tick_ms vetoes every read (runtime/node.py:1668-1676);
+# election_mul is 10, not 3, since at 3 it took 175 s on the H100 until
+# every group had a ready leader (split votes with PreVote off).  Waves
+# are cut from 2 + 10 to 1 + 7 to keep the phase under 180 s there.
+# Every wave is issued in full and waited for.  A group is served in a wave
+# when a set and a get of it were acknowledged; it is forwarded when its
+# stub's container did not lead it as the wave began.  Admission control
+# and the client's circuit breakers shed part of each burst by design (a
+# wave with open breakers served 6.5% of its forwarded groups on the
+# H100), so the floors are these (PERF.md §4): every measured wave serves
+# at least API_WAVE_FLOOR of the groups and at least one forwarded group,
+# and over the measured waves at least API_FLOOR of the groups were
+# served, and of the groups ever forwarded, at least API_FLOOR were
+# served while forwarded.
+API_LANES, API_GROUPS = 1024, 1000
+API_TICK_MS = 250
+API_ELECTION_MUL = 10.0
+API_WARMUP, API_WAVES = 1, 7
+API_OP_S = 60.0              # the client's budget for one operation
+API_WAVE_FLOOR, API_FLOOR = 0.2, 0.9
+API_SAMPLE = 64
+API_VALUE = 64
+
+
+def _quantile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _qc_device_us(trace: str) -> tuple:
+    """Mean device time of the quorum kernel's launches, their count, and
+    the kernels' share of the window, from a chrome trace."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    qc = [e["dur"] for e in kern if "qc_kernel" in e.get("name", "")]
+    if not qc:
+        raise AssertionError("the profiled tick shows no qc_kernel")
+    span = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    lo = min(e["ts"] for e in span)
+    hi = max(e["ts"] + e["dur"] for e in span)
+    return (sum(qc) / len(qc), len(qc),
+            sum(e["dur"] for e in kern) / max(hi - lo, 1e-9))
+
+
+def phase_api_1k() -> dict:
+    import tempfile
+    import threading
+    from rafting_tpu_torch import LEADER, RaftConfig, RaftContainer, \
+        RaftFactory
+    from rafting_tpu_torch.machine import KVMachineProvider
+    from rafting_tpu_torch.ops import quorum
+    from rafting_tpu_torch.testkit import linz
+    from rafting_tpu_torch.testkit.harness import free_ports
+    from rafting_tpu_torch.testkit.history import History, StubRecorder
+
+    class KVFactory(RaftFactory):
+        def machine_provider(self, config, node_id):
+            return KVMachineProvider(os.path.join(config.data_dir, "kv"))
+
+    root = tempfile.mkdtemp(prefix="api1k-")
+    uris = [f"raft://127.0.0.1:{p}" for p in free_ports(3)]
+    cfgs = [RaftConfig(local=uris[i],
+                       peers=tuple(u for j, u in enumerate(uris) if j != i),
+                       n_groups=API_LANES, pre_vote=False, tick_ms=API_TICK_MS,
+                       election_mul=API_ELECTION_MUL, seed=0,
+                       data_dir=os.path.join(root, f"node{i}"))
+            for i in range(3)]
+    names = [f"g{g:04d}" for g in range(API_GROUPS)]
+    sample = set(np.random.default_rng(0).choice(
+        API_GROUPS, API_SAMPLE, replace=False).tolist())
+    histories = {g: History() for g in sample}
+    gs = np.arange(API_GROUPS)
+    lock = threading.Lock()
+    lat: list = []               # latency of each acknowledged operation
+    acked_sets: list = []        # (lane, key, value)
+    counts = {"ok": 0, "failed": 0, "pending": 0}
+    fails: dict = {}             # failed ops by kind and exception type
+    why: dict = {}               # the first message of each
+    cs: list = []
+    stack0 = None
+    torch.cuda.reset_peak_memory_stats()
+    quorum.reset_launch_counts()
+    t_boot = time.perf_counter()
+    try:
+        cs = [RaftContainer(cfg, KVFactory(), admin=False).create()
+              for cfg in cfgs]
+        lanes = [[c.open_context(n) for n in names] for c in cs]
+        if not lanes[0] == lanes[1] == lanes[2] == \
+                list(range(1, API_GROUPS + 1)):
+            raise AssertionError("the containers gave the names different "
+                                 "lanes")
+        lane_of = lanes[0]
+        idx = np.array(lane_of)
+
+        def all_led_ready() -> bool:
+            led = np.zeros(API_GROUPS, bool)
+            for c in cs:
+                n = c.node
+                led |= (n.h_role[idx] == LEADER) & n.h_ready[idx]
+            return bool(led.all())
+        _until(all_led_ready, "a ready leader in every group", 240)
+        settle_s = time.perf_counter() - t_boot
+        log(f"[api-1k] every group led and ready after {settle_s:.1f}s; "
+            f"{_mem()}")
+        stubs = [cs[g % 3].get_stub(names[g]) for g in range(API_GROUPS)]
+        # A wave starts ~4,000 threads (each forwarded operation runs a
+        # client thread and a serving thread); at the default 8 MiB stack
+        # that maps 32 GiB.  2 MiB each is ample for them.
+        stack0 = threading.stack_size(2 << 20)
+
+        def wave(w: int) -> dict:
+            """Issue the whole wave, wait for it, and return which groups
+            had a set and a get acknowledged, and which were forwarded."""
+            roles = np.stack([c.node.h_role[idx] for c in cs])
+            st = {"set": np.zeros(API_GROUPS, int),
+                  "get": np.zeros(API_GROUPS, bool),
+                  "fwd": roles[gs % 3, gs] != LEADER}
+            futs = []
+
+            def issue(call, payload, g, rec, kind, key, val=None):
+                op = rec.history.invoke(rec.proc, kind, key, val) \
+                    if rec else None
+                t0 = time.perf_counter()
+
+                def done(f):
+                    exc = f.exception()
+                    with lock:
+                        counts["failed" if exc else "ok"] += 1
+                        if exc is not None:
+                            k = f"{'set' if kind == 'w' else 'get'} " \
+                                f"{type(exc).__name__}"
+                            fails[k] = fails.get(k, 0) + 1
+                            why.setdefault(k, str(exc)[:100])
+                        else:
+                            lat.append(time.perf_counter() - t0)
+                            if kind == "w":
+                                st["set"][g] += 1
+                                acked_sets.append((lane_of[g], key, val))
+                            else:
+                                st["get"][g] = True
+                    if rec is not None:
+                        if exc is None:
+                            rec.history.ok(op, f.result())
+                        else:
+                            rec._classify(op, exc)
+                fut = call(payload, timeout=API_OP_S)
+                fut.add_done_callback(done)
+                futs.append(fut)
+
+            for g in range(API_GROUPS):
+                stub = stubs[g]
+                rec = StubRecorder(histories[g], f"c{g % 3}") \
+                    if g in sample else None
+                for tag in ("a", "b"):
+                    key = f"{tag}{w}"
+                    val = f"g{g}-w{w}-{tag}".ljust(API_VALUE, "v")
+                    issue(stub.submit, json.dumps(
+                        {"op": "set", "k": key, "v": val}), g, rec, "w",
+                        key, val)
+                key = f"a{w - 1}"
+                issue(stub.read, json.dumps({"op": "get", "k": key}), g,
+                      rec, "r", key)
+            # A local future may pend past the client's budget (stub.submit
+            # bounds only the forward chase): what is not done by then
+            # counts as not acknowledged.
+            deadline = time.monotonic() + API_OP_S + 10.0
+            for f in futs:
+                try:
+                    f.result(timeout=max(0.0, deadline - time.monotonic()))
+                except Exception:
+                    pass
+            with lock:
+                counts["pending"] += sum(1 for f in futs if not f.done())
+            return st
+
+        def logged_wave(w: int, label: str) -> tuple:
+            tw = time.perf_counter()
+            st = wave(w)
+            served = (st["set"] > 0) & st["get"]
+            share = (float(served.mean()), float(served[st["fwd"]].mean()))
+            with lock:
+                log(f"[api-1k] {label} wave {w}: "
+                    f"{time.perf_counter() - tw:.2f}s, served "
+                    f"{share[0]:.1%} of the groups, {share[1]:.1%} of the "
+                    f"{int(st['fwd'].sum())} forwarded ones; ops so far "
+                    f"{counts}, failed by type {fails}, e.g. {why}; "
+                    f"{_mem()}")
+            return share, served, st["fwd"]
+
+        for w in range(API_WARMUP):
+            logged_wave(w, "warm-up")
+        for c in cs:
+            c.node.metrics.histogram("tick_latency_s").reset()
+            for stage in c.node.metrics.breakdown():
+                c.node.metrics.histogram(f"tick_stage_{stage}").reset()
+        with lock:
+            lat.clear()
+            counts.update({"ok": 0, "failed": 0, "pending": 0})
+            n_sets0 = len(acked_sets)
+        t0 = time.perf_counter()
+        shares = []
+        served = np.zeros(API_GROUPS, bool)
+        fwd_served = np.zeros(API_GROUPS, bool)
+        fwd_ever = np.zeros(API_GROUPS, bool)
+        for w in range(API_WAVES):
+            share, srv, fwd = logged_wave(API_WARMUP + w, "measured")
+            shares.append(share)
+            served |= srv
+            fwd_served |= srv & fwd
+            fwd_ever |= fwd
+            log(f"[api-1k]   served so far {served.mean():.1%} of the groups, "
+                f"{fwd_served.sum() / max(fwd_ever.sum(), 1):.1%} of the "
+                f"ones forwarded while forwarded")
+            if share[0] < API_WAVE_FLOOR or not (srv & fwd).any():
+                raise AssertionError(
+                    f"measured wave {w} served {share[0]:.1%} of the groups "
+                    f"(floor {API_WAVE_FLOOR:.0%}) and "
+                    f"{int((srv & fwd).sum())} forwarded ones (floor 1)")
+        secs = time.perf_counter() - t0
+        cover = (float(served.mean()),
+                 float(fwd_served.sum() / max(fwd_ever.sum(), 1)))
+        if min(cover) < API_FLOOR:
+            raise AssertionError(
+                f"the measured waves served {cover[0]:.1%} of the groups, "
+                f"and {cover[1]:.1%} of the groups ever forwarded while "
+                f"forwarded, under the {API_FLOOR:.0%} floor")
+        with lock:
+            meas_lat, ok, failed = list(lat), counts["ok"], counts["failed"]
+            pending = counts["pending"]
+            meas_sets = len(acked_sets) - n_sets0
+        ticks = {}
+        for c in cs:
+            h = c.node.metrics.histogram("tick_latency_s")
+            ticks[c.node.node_id] = (
+                h.total / max(h.n, 1), h.quantile(0.99),
+                {k: v["mean"] for k, v in c.node.metrics.breakdown().items()})
+
+        # A window holding one whole node tick of container 0 (the two
+        # other nodes tick in it too) under torch.profiler.
+        from torch.profiler import ProfilerActivity, profile
+        trace = os.path.join(root, "tick_trace.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            n0 = cs[0].node.ticks
+            _until(lambda: cs[0].node.ticks >= n0 + 2,
+                   "two ticks of container 0", 120)
+        prof.export_chrome_trace(trace)
+        qc_us, qc_n, busy = _qc_device_us(trace)
+
+        # Drain: every node applied every lane to the same commit index.
+        # Every set acknowledged before the drain is then on every node.
+        with lock:
+            acked = list(acked_sets)
+
+        def drained() -> bool:
+            hc = np.stack([c.node.h_commit[idx] for c in cs])
+            ap = np.stack([[c.node.dispatcher.applied(int(l))
+                            for l in lane_of] for c in cs])
+            return bool((hc == hc[0:1]).all() and (ap == hc).all())
+        _until(drained, "every replica applied every commit", 120)
+        lost = [(lane, k) for c in cs for lane, k, v in acked
+                if c.node.dispatcher.machine(lane).data.get(k) != v]
+        if lost:
+            raise AssertionError(f"{len(lost)} acknowledged sets do not read "
+                                 f"back, first {lost[:3]}")
+        bad = [g for g, h in sorted(histories.items())
+               if not linz.check(h).ok]
+        if bad:
+            raise AssertionError(f"linz.check failed in groups {bad[:4]}: "
+                                 f"{linz.check(histories[bad[0]]).render()}")
+        snaps = [c.node.metrics["snapshots_taken"] for c in cs]
+        if any(snaps):
+            raise AssertionError(f"snapshots taken in the window: {snaps}")
+        node0 = cs[0].node
+        peak = torch.cuda.max_memory_allocated()
+        for c in cs:
+            c.destroy()
+        # The three loops have stopped: every node tick launched the
+        # kernel once.
+        launches = quorum.launch_counts["quorum_commit"]
+        all_ticks = sum(c.node.ticks for c in cs)
+        if launches != all_ticks:
+            raise AssertionError(
+                f"quorum kernel: {launches} launches in {all_ticks} node "
+                f"ticks of the three containers (want one per tick)")
+        kern = _kernel_entry("quorum_commit[api-1k]", node0.state, launches)
+        log(f"[api-1k] BASELINE configs[1]: {API_GROUPS} groups (n_groups "
+            f"{API_LANES}) x 3 RaftContainers on the card over TCP, KV machine, "
+            f"PreVote off; every group led and ready "
+            f"{settle_s:.1f}s after boot; {API_WAVES} measured waves after "
+            f"{API_WARMUP} (tick_ms {API_TICK_MS}, election "
+            f"x{API_ELECTION_MUL:g}), {secs / API_WAVES:.2f}s/wave: "
+            f"{ok / secs:.0f} acked ops/s, {meas_sets / secs:.0f} sets/s, "
+            f"{ok} acknowledged, {failed} failed and {pending} pending of "
+            f"{3 * API_GROUPS * API_WAVES}; each measured wave served "
+            f"{min(s[0] for s in shares):.1%}-{max(s[0] for s in shares):.1%}"
+            f" of the groups (floor {API_WAVE_FLOOR:.0%}) and "
+            f"{min(s[1] for s in shares):.1%}-{max(s[1] for s in shares):.1%}"
+            f" of the forwarded ones (floor one group); the waves served {cover[0]:.1%} of the "
+            f"groups and {cover[1]:.1%} of the forwarded ones while "
+            f"forwarded (floor {API_FLOOR:.0%}); acknowledged "
+            f"latency p50 {_quantile(meas_lat, 0.5) * 1e3:.1f} ms, p99 "
+            f"{_quantile(meas_lat, 0.99) * 1e3:.1f} ms")
+        for nid, (mean, p99, stages) in sorted(ticks.items()):
+            log(f"[api-1k]   node{nid}: tick mean {mean * 1e3:.1f} ms, p99 <= "
+                f"{p99 * 1e3:.1f} ms; stage means (ms) " + ", ".join(
+                    f"{k} {v * 1e3:.2f}" for k, v in sorted(stages.items())))
+        log(f"[api-1k] {len(acked)} acknowledged sets read back on 3 "
+            f"nodes; linz.check ok on {len(histories)} sampled groups "
+            f"({sum(len(h.ops()) for h in histories.values())} ops); "
+            f"snapshots_taken 0; {launches} quorum_commit launches in "
+            f"{all_ticks} node ticks of the three containers; profiled "
+            f"window (one whole tick of container 0): qc_kernel "
+            f"{qc_us:.2f} us device time per launch over {qc_n} launches, "
+            f"kernels busy {busy:.1%} of the window; {_kernel_line(kern)}; "
+            f"peak memory {peak / 2**30:.3f} GiB")
+        return kern
+    finally:
+        if stack0 is not None:
+            threading.stack_size(stack0)
+        for c in cs:
+            c.destroy()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _profile(label: str, tick) -> None:
     """8 ticks of ``tick()`` under torch.profiler: the top kernels by
     device time and the device-busy share of the wall time."""
@@ -799,9 +1406,18 @@ def main() -> int:
     phase_kernel()
     phase_parity()
     phase_parity_nemesis()
-    kernels = [phase_main(), phase_nemesis()]
+    kernels = [phase_main()]
+    log(f"[mem] after main: {_mem()}")
+    kernels.append(phase_nemesis())
+    log(f"[mem] after nemesis: {_mem()}")
     phase_runtime_parity()
     kernels.append(phase_runtime())
+    log(f"[mem] after runtime: {_mem()}")
+    _release_host_memory()
+    log(f"[mem] released: {_mem()}")
+    phase_api_testnode()
+    kernels.append(phase_api_1k())
+    log(f"[mem] after api-1k: {_mem()}")
     if "--profile" in sys.argv[1:]:
         phase_profile()
     for k in kernels:

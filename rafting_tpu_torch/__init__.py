@@ -9,7 +9,11 @@ device nemesis (``run_cluster_ticks_nemesis``, ``testkit.nemesis``) and
 the optional subtrees (flight recorder, heat lanes, CheckQuorum, debug
 checks) run on the same step.  The node runtime (``RaftNode``: host
 inbox, device step, WAL persist barrier, send, applies, maintain) and its
-in-process harness (``LocalCluster``) drive that step tick by tick.
+in-process harness (``LocalCluster``) drive that step tick by tick.  The
+public API sits on top, as in the reference: ``RaftContainer`` (one
+node's lifecycle and its named groups, the ``@raft`` admin group
+included), ``RaftStub``, the ``RaftFactory`` SPI and ``RaftConfig``;
+``RaftContainer(config, device=...)`` resolves the device once.
 """
 
 from .core.cluster import (
@@ -27,8 +31,18 @@ from .core.types import (
 )
 from .runtime.node import RaftNode
 from .testkit.harness import LocalCluster
+from .api import (
+    ADMIN_GROUP, BusyLoopError, NotLeaderError, NotReadyError,
+    ObsoleteContextError, RaftConfig, RaftContainer, RaftError, RaftFactory,
+    RaftStub, RetryCommandError, SerializeError, WaitTimeoutError,
+    load_xml_config,
+)
 
 __all__ = [
+    "ADMIN_GROUP", "BusyLoopError", "NotLeaderError", "NotReadyError",
+    "ObsoleteContextError", "RaftConfig", "RaftContainer", "RaftError",
+    "RaftFactory", "RaftStub", "RetryCommandError", "SerializeError",
+    "WaitTimeoutError", "load_xml_config",
     "CANDIDATE", "DEBUG_CODES", "FOLLOWER", "LEADER", "NIL", "PRE_CANDIDATE",
     "DeviceCluster", "EngineConfig", "FaultSchedule", "HeatState",
     "HostInbox", "LocalCluster", "Messages", "QuorumContact", "RaftNode",

@@ -19,18 +19,29 @@ meaning (the legacy fixed-majority baseline, plain torch).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 I32 = torch.int32
 _I32_MAX = (1 << 31) - 1
 
-# Kernel launches, counted where each wrapper launches its kernel.
+# Kernel launches, counted where each wrapper launches its kernel.  Several
+# nodes tick from their own threads in one process, so the count takes a
+# lock.
 launch_counts = {"quorum_commit": 0}
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _bits(mask: torch.Tensor, P: int) -> torch.Tensor:
@@ -136,7 +147,7 @@ def quorum_commit_cuda(match_full, own_from, last, commit, can_lead,
     if err != 0:
         raise RuntimeError(f"quorum_commit kernel launch failed: CUDA "
                            f"error {err}")
-    launch_counts["quorum_commit"] += 1
+    _count_launch("quorum_commit")
     return out
 
 

@@ -472,6 +472,14 @@ class RaftNode:
         self.maintain = maintain or MaintainAgreement(cfg.n_groups)
         self.template = messages_template(cfg)
         self.acc = InboxAccumulator(cfg, self.template)
+        # Collapse any standing backlog, not only one beyond 3 slices.
+        # Peers ticking at one rate keep a backlog of 1-3 slices queued
+        # for good (one slice drains per tick, one arrives), and each
+        # queued slice adds a tick to every AE -> AER round trip.  Past
+        # read_fresh_ticks (3) no ack is fresh lease evidence, so the
+        # leader's linearizable reads never release (a fault of the
+        # reference's inbox; fixed in the port only).
+        self.acc.COLLAPSE_BACKLOG = 1
         self.transport = transport_factory(self, self.acc.merge,
                                            self._serve_snapshot)
 

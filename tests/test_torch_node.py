@@ -7,12 +7,14 @@
   mirrors of every node are equal at every round, the machine files are
   byte-equal and every node's WAL exports the same state.
 * The scenarios of ``tests/test_node_runtime.py`` on the port.
-* One linearizable read through ``RaftNode.read``, port against JAX.
+* One linearizable read through ``RaftNode.read``, port against JAX, and
+  one behind a standing inbox backlog (served by the port only).
 * WAL interchange: a WAL written by one package restores lane for lane
   the same in the other (a group with a gap takes the slow-scan branch).
-* Guards: the copied host-tier modules stay byte-equal to the reference,
-  the port imports without jax, and the entry points refuse to drift to
-  the CPU.
+* Guards: the copied modules stay byte-equal to the reference, the
+  device seams of the container, the factory and ``noderun`` change
+  nothing else, the port exports every public name of the reference,
+  imports without jax, and its entry points refuse to drift to the CPU.
 
 Every port object runs with ``device="cpu"``.
 """
@@ -299,6 +301,37 @@ def test_linearizable_read_matches_jax(tmp_path, monkeypatch):
     assert r >= w and served >= 1
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_read_survives_standing_inbox_backlog(tmp_path, monkeypatch, pkg):
+    """Two slices queued ahead on every link stay queued for good under
+    the reference's inbox (at 64 groups a slice arrives every tick, one
+    drains per tick, and only a backlog beyond 3 collapses): every AE ->
+    AER round trip then takes more than read_fresh_ticks, and a
+    linearizable read never releases.  The port's node collapses any
+    backlog, so the read is served."""
+    for k, v in PINNED_ENV.items():
+        monkeypatch.setenv(k, v)
+    lc = JaxLocalCluster(JaxEngineConfig(**LOCKSTEP_KW), str(tmp_path)) \
+        if pkg == "jax" else _cluster(tmp_path, EngineConfig(**LOCKSTEP_KW))
+    try:
+        lead = lc.wait_leader(0)
+        node = lc.nodes[lead]
+        lc.tick_until(lambda: node.is_ready(0), what="leader ready")
+        wf = node.submit(0, b"w-1")
+        lc.tick_until(wf.done, what="write applied")
+        for dst in lc.nodes:
+            for src in lc.nodes:
+                if src != dst:
+                    for _ in range(2):
+                        lc.nodes[dst].acc.merge(src, {}, {})
+        lc.tick(10)     # past any lease evidence from before
+        rf = node.read(0, b"q")
+        lc.tick(60)
+        assert rf.done() == (pkg == "port")
+    finally:
+        lc.close()
+
+
 # ---------------------------------------------------------- WAL interchange --
 
 def _write_wal(kind, root):
@@ -379,6 +412,13 @@ COPIES = [
     "log/native/wal.cpp", "snapshot/__init__.py", "snapshot/archive.py",
     "snapshot/policy.py", "runtime/__init__.py", "runtime/admission.py",
     "runtime/txn.py", "runtime/obsrv.py", "testkit/fixtures.py",
+    # The public API slice.
+    "log/spi.py", "log/memstore.py", "log/__init__.py",
+    "machine/kv_machine.py", "machine/__init__.py", "api/retry.py",
+    "api/stub.py", "api/config.py", "api/__init__.py",
+    "testkit/history.py", "testkit/linz.py", "testkit/logcheck.py",
+    "admin/__init__.py", "admin/kv.py", "admin/administrator.py",
+    "admin/rebalance.py", "tools/__init__.py",
 ]
 # Copies with named edits: the file outside these top-level functions
 # equals the reference.
@@ -410,6 +450,55 @@ def test_copied_module_matches_reference(rel):
     assert port == ref, f"rafting_tpu_torch/{rel} drifted from the reference"
 
 
+# Classes with a device seam: the port passes ``device`` through.  Taking
+# out every trailing ``, device=...`` argument and then every line that
+# mentions ``device`` must give the reference back, so no line outside
+# the seam can drift.  noderun also swaps its jax platform pin for
+# ``--device`` and imports the port's API relatively; those reference
+# lines are mapped as listed.
+DEVICE_SEAMS = {
+    "api/factory.py": [],
+    "api/container.py": [],
+    "tools/noderun.py": [
+        (rb"^.*\b(platform|jax)\b.*\n", b""),
+        (rb"rafting_tpu\.tools\.noderun", b"rafting_tpu_torch.tools.noderun"),
+        (rb"from rafting_tpu\.api import", b"from ..api import"),
+    ],
+}
+
+
+def _without_device(src: bytes) -> bytes:
+    src = re.sub(rb",\s*device=[\w.]+", b"", src)
+    src = re.sub(rb"^.*\bdevice\b.*\n", b"", src, flags=re.M)
+    return re.sub(rb"\n{3,}", b"\n\n", src)
+
+
+@pytest.mark.parametrize("rel", sorted(DEVICE_SEAMS))
+def test_device_seam_matches_reference(rel):
+    port, ref = _read("rafting_tpu_torch", rel), _read("rafting_tpu", rel)
+    assert b"device" in port and port != ref
+    for pattern, repl in DEVICE_SEAMS[rel]:
+        ref, n = re.subn(pattern, repl, ref, flags=re.M)
+        assert n, pattern
+    assert _without_device(port) == _without_device(ref), \
+        f"rafting_tpu_torch/{rel} drifted outside its device seam"
+
+
+def test_package_exports_match_reference():
+    """Every public name of ``rafting_tpu`` (the API's included) is a
+    public name of the port."""
+    import types
+    import rafting_tpu
+    import rafting_tpu_torch
+    names = {n for n, v in vars(rafting_tpu).items()
+             if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert names - set(rafting_tpu_torch.__all__) == set()
+    for n in ("RaftContainer", "RaftConfig", "RaftFactory", "RaftStub",
+              "load_xml_config"):
+        assert getattr(rafting_tpu_torch, n).__module__.startswith(
+            "rafting_tpu_torch.api.")
+
+
 def test_runtime_imports_without_jax():
     code = (
         "import sys\n"
@@ -420,6 +509,13 @@ def test_runtime_imports_without_jax():
         "import rafting_tpu_torch.transport\n"
         "import rafting_tpu_torch.log.store\n"
         "import rafting_tpu_torch.utils.profiling\n"
+        "import rafting_tpu_torch.api\n"
+        "import rafting_tpu_torch.admin\n"
+        "import rafting_tpu_torch.machine.kv_machine\n"
+        "import rafting_tpu_torch.log.memstore\n"
+        "import rafting_tpu_torch.testkit.linz\n"
+        "import rafting_tpu_torch.testkit.logcheck\n"
+        "import rafting_tpu_torch.tools.noderun\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       m.split('.')[0] in ('jax', 'flax', 'rafting_tpu')]\n"
         "assert not bad, bad\n"
@@ -431,11 +527,44 @@ def test_runtime_imports_without_jax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
-@pytest.mark.parametrize("entry", ["RaftNode", "LocalCluster"])
+NODE_XML = """<raft>
+  <cluster>
+    <local>raft://127.0.0.1:7301</local>
+    <remote>raft://127.0.0.1:7302</remote>
+    <remote>raft://127.0.0.1:7303</remote>
+  </cluster>
+  <engine groups="4" log-slots="32" batch="4" max-submit="4"/>
+  <storage dir="{dir}"/>
+</raft>
+"""
+
+
+@pytest.mark.parametrize("entry", ["RaftNode", "LocalCluster",
+                                   "RaftContainer", "noderun"])
 def test_entry_points_need_a_card(tmp_path, monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "noderun":
+        xml = tmp_path / "node0.xml"
+        xml.write_text(NODE_XML.format(dir=tmp_path / "node0"))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        res = subprocess.run(
+            [sys.executable, "-m", "rafting_tpu_torch.tools.noderun",
+             str(xml)], cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=120)
+        assert res.returncode != 0 and "CUDA device" in res.stderr, \
+            res.stderr[-2000:]
+        assert "READY" not in res.stdout
+        return
     with pytest.raises(RuntimeError, match="CUDA device"):
         if entry == "LocalCluster":
             LocalCluster(CFG, str(tmp_path))
+        elif entry == "RaftContainer":
+            from rafting_tpu_torch import RaftConfig, RaftContainer
+            from rafting_tpu_torch.api import load_xml_config
+            xml = tmp_path / "node0.xml"
+            xml.write_text(NODE_XML.format(dir=tmp_path / "node0"))
+            assert isinstance(load_xml_config(str(xml)), RaftConfig)
+            RaftContainer(load_xml_config(str(xml))).create()
         else:
             RaftNode(CFG, 0, str(tmp_path), None, None)
