@@ -1,10 +1,10 @@
 """Cluster-level Raft safety invariants, audited over cluster snapshots.
 
-The port's own copy of ``rafting_tpu.testkit.invariants.ClusterChecker``:
-the same invariants, the same decisions and messages on the same
-snapshots, written with numpy array operations instead of per-entry
-Python loops, so that one audit of a 100k-group × 5-node cluster takes
-well under a second instead of minutes.
+The port's own copy of the JAX package's ``ClusterChecker``
+(``testkit/invariants.py``): the same invariants, the same decisions and
+messages on the same snapshots, written with numpy array operations
+instead of per-entry Python loops, so that one audit of a 100k-group ×
+5-node cluster takes well under a second instead of minutes.
 
 Checked (Raft §5.2-§5.4):
 
@@ -18,13 +18,18 @@ Checked (Raft §5.2-§5.4):
   regresses (a crash-restarted node's volatile frontier may).
 * **Term monotonicity** — per (node, group), the term never decreases.
 
+Plus the transaction invariant, :func:`check_transfer_atomicity`, copied
+from the reference word for word: the bank-transfer judgment over the
+converged machines of the cross-group 2PC plane (balance conserved, no
+lost, phantom or half-applied transfer, no stranded intent).
+
 Snapshots are dicts of numpy arrays, as ``core.cluster.cluster_snapshot``
 makes them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -34,6 +39,92 @@ from ..core.types import LEADER
 
 class InvariantViolation(AssertionError):
     pass
+
+
+def check_transfer_atomicity(coordinator, participants: Dict[int, Any],
+                             initial_total: Optional[int] = None,
+                             key_prefix: str = "acct") -> dict:
+    """The bank-transfer atomicity judgment over CONVERGED state.
+
+    ``coordinator``: the coordinator group's machine (pass the current
+    leader's — its ``txns`` dict is the replicated decision ledger).
+    ``participants``: lane -> that participant group's (leader) machine.
+    ``initial_total``: when given, the sum of numeric values under keys
+    starting with ``key_prefix`` across all participants must equal it
+    (balance conservation — a lost debit or phantom credit moves it).
+
+    Raises :class:`InvariantViolation` on:
+
+    * a LIVE intent on any participant — an in-doubt txn nobody
+      resolved (call only after the deadline sweep had time to run);
+    * a LOST transfer — the coordinator decided commit but a recorded
+      participant has no commit in its done-ledger;
+    * a HALF-APPLIED transfer — the coordinator decided abort (or never
+      decided) yet some participant committed;
+    * a PHANTOM — a participant applied a commit it never prepared
+      (``commit-noop`` ledger entries, machine/kv_machine.py), or holds
+      a commit for a txn the coordinator has no commit decision for;
+    * a balance-sum mismatch when ``initial_total`` is given.
+
+    Returns a report dict (committed/aborted/undecided counts, the
+    balance sum) for artifacts."""
+    for lane, m in participants.items():
+        if m.intents:
+            raise InvariantViolation(
+                f"participant {lane}: {len(m.intents)} live intent(s) "
+                f"{sorted(m.intents)} — in-doubt txns unresolved")
+        for tid, done in m.txn_done.items():
+            if done == "commit-noop":
+                raise InvariantViolation(
+                    f"participant {lane}: txn {tid} applied a commit it "
+                    f"never prepared (phantom)")
+
+    committed = aborted = undecided = 0
+    decisions = coordinator.txns
+    for tid, rec in decisions.items():
+        d = rec["decision"]
+        if d == "commit":
+            committed += 1
+            for lane in rec["parts"]:
+                m = participants.get(lane)
+                if m is not None and m.txn_done.get(tid) != "commit":
+                    raise InvariantViolation(
+                        f"LOST transfer {tid}: coordinator decided "
+                        f"commit but participant {lane} recorded "
+                        f"{m.txn_done.get(tid)!r}")
+        elif d == "abort":
+            aborted += 1
+            for lane in rec["parts"]:
+                m = participants.get(lane)
+                if m is not None and m.txn_done.get(tid) == "commit":
+                    raise InvariantViolation(
+                        f"HALF-APPLIED transfer {tid}: decided abort "
+                        f"but participant {lane} committed")
+        else:
+            undecided += 1
+
+    for lane, m in participants.items():
+        for tid, done in m.txn_done.items():
+            if done == "commit":
+                rec = decisions.get(tid)
+                if rec is None or rec["decision"] != "commit":
+                    raise InvariantViolation(
+                        f"PHANTOM transfer {tid}: participant {lane} "
+                        f"committed but the coordinator decided "
+                        f"{rec['decision'] if rec else None!r}")
+
+    total = 0
+    for m in participants.values():
+        for k, v in m.data.items():
+            if k.startswith(key_prefix) and isinstance(v, (int, float)):
+                total += v
+    if initial_total is not None and total != initial_total:
+        raise InvariantViolation(
+            f"balance NOT conserved: sum over {key_prefix}* keys is "
+            f"{total}, expected {initial_total}")
+    return {"committed": committed, "aborted": aborted,
+            "undecided": undecided, "balance_total": total,
+            "participants": len(participants)}
 
 
 def _grow(a: np.ndarray, cols: int, fill) -> np.ndarray:

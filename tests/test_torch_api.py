@@ -5,8 +5,12 @@
   run one sequential single-client script (opens, executes through the
   leader's and a follower's stub, close and reopen, destroy, a container
   destroyed and re-created from its data dir).  The lanes, every
-  Administrator's table, every ``execute`` result and every machine file
-  are equal.
+  Administrator's table and the commands of every machine file, in order,
+  are equal, and each run's ``execute`` results are strictly increasing
+  and name its own file's lines.  The results and the files are equal
+  byte for byte when neither run changed leader while the script ran:
+  apply indices count election no-ops, so a leader that a loaded host
+  deschedules past its election timeout shifts them in one run only.
 * The TCP scenarios of ``tests/test_api.py`` and ``tests/test_admin.py``
   on the port (``tests/test_torch_system.py`` holds the data-dir
   interchange, the system procedure and ``noderun``).
@@ -101,6 +105,16 @@ def _command_lines(blob: bytes) -> list:
             if ln.split(":", 1)[1]]
 
 
+def _noop_count(blob: bytes) -> int:
+    return sum(1 for ln in blob.decode().splitlines()
+               if not ln.split(":", 1)[1])
+
+
+def _term(cs, lane) -> int:
+    """The highest term any container's node holds for ``lane``."""
+    return max(int(c.node.h_term[lane]) for c in cs)
+
+
 def _settled(cs, lanes, n_root_cmds):
     """Every container's machine files equal, the root group's holding
     ``n_root_cmds`` commands; returns them."""
@@ -127,7 +141,7 @@ def _container_script(make, cfgs) -> dict:
     through the leader's and a follower's stub, close and reopen ``a``,
     destroy ``b``, destroy and re-create a container that leads neither
     ``root`` nor ``a``, execute again."""
-    out = {"lanes": [], "results": []}
+    out = {"lanes": [], "results": [], "terms": {}}
     cs = [make(cfg) for cfg in cfgs]
     try:
         for name in ("root", "a", "b"):
@@ -138,6 +152,7 @@ def _container_script(make, cfgs) -> dict:
 
         def execute(tag, n):
             lead = _stable_leader(cs, root)
+            out["terms"].setdefault("root", [_term(cs, root)])
             for k in range(n):
                 if not lead.node.is_leader(root):
                     lead = _stable_leader(cs, root)
@@ -155,6 +170,7 @@ def _container_script(make, cfgs) -> dict:
               "b destroyed")
         _wait(lambda: all(c.node.is_active(a) for c in cs), "a reopened")
         leads = {id(_stable_leader(cs, root)), id(_stable_leader(cs, a))}
+        out["terms"]["a"] = [_term(cs, a)]
         victim = next(i for i, c in enumerate(cs) if id(c) not in leads)
         cs[victim].destroy()
         cs[victim] = make(cfgs[victim])
@@ -162,6 +178,8 @@ def _container_script(make, cfgs) -> dict:
               and cs[victim].node.is_active(a), "re-created container")
         execute("y", 10)
         out["files"] = _settled(cs, out["lanes"], 30)
+        for name, lane in (("root", root), ("a", a)):
+            out["terms"][name].append(_term(cs, lane))
         tables = [_admin_table(c) for c in cs]
         assert all(t == tables[0] for t in tables[1:]), tables
         out["table"] = tables[0]
@@ -180,16 +198,28 @@ def test_container_parity_with_jax(tmp_path):
     assert port["lanes"] == want["lanes"] == [1, 2, 3, 2]
     assert port["table"] == want["table"]
     assert want["table"]["b"][0] == "DESTROYED"
-    assert port["results"] == want["results"]
-    assert port["results"] == sorted(port["results"])
     assert sorted(port["files"]) == sorted(want["files"]) == \
         ["group_1.txt", "group_2.txt"]
-    for name in want["files"]:
-        assert port["files"][name] == want["files"][name], name
-    payloads = [ln.split(":", 1)[1]
-                for ln in _command_lines(port["files"]["group_1.txt"])]
-    assert payloads == [f"x-{k}" for k in range(20)] + \
-        [f"y-{k}" for k in range(10)]
+    script = [f"x-{k}" for k in range(20)] + [f"y-{k}" for k in range(10)]
+    for run in (want, port):
+        res = run["results"]
+        assert all(a < b for a, b in zip(res, res[1:])), res
+        cmds = [ln.split(":", 1)
+                for ln in _command_lines(run["files"]["group_1.txt"])]
+        assert [p for _, p in cmds] == script
+        assert [int(i) for i, _ in cmds] == res
+        assert _command_lines(run["files"]["group_2.txt"]) == []
+    # Byte equality where no leader changed while the script ran in
+    # either run (the same terms throughout, and the same no-ops, all of
+    # them before the first command).
+    calm = all(t[0] == t[-1] for run in (want, port)
+               for t in run["terms"].values())
+    noops = {pkg: {n: _noop_count(b) for n, b in run["files"].items()}
+             for pkg, run in got.items()}
+    if calm and noops["jax"] == noops["port"]:
+        assert port["results"] == want["results"]
+        for name in want["files"]:
+            assert port["files"][name] == want["files"][name], name
 
 
 # --------------------------------------- the scenarios of test_api.py --

@@ -419,6 +419,8 @@ COPIES = [
     "testkit/history.py", "testkit/linz.py", "testkit/logcheck.py",
     "admin/__init__.py", "admin/kv.py", "admin/administrator.py",
     "admin/rebalance.py", "tools/__init__.py",
+    # The verification plane.
+    "testkit/faultfs.py", "testkit/openloop.py",
 ]
 # Copies with named edits: the file outside these top-level functions
 # equals the reference.
@@ -455,7 +457,9 @@ def test_copied_module_matches_reference(rel):
 # mentions ``device`` must give the reference back, so no line outside
 # the seam can drift.  noderun also swaps its jax platform pin for
 # ``--device`` and imports the port's API relatively; those reference
-# lines are mapped as listed.
+# lines are mapped as listed.  The chaos kit's ``ProcCluster`` takes the
+# device as a keyword with no default and spawns the port's noderun with
+# ``--device`` instead of pinning JAX to the CPU.
 DEVICE_SEAMS = {
     "api/factory.py": [],
     "api/container.py": [],
@@ -463,6 +467,11 @@ DEVICE_SEAMS = {
         (rb"^.*\b(platform|jax)\b.*\n", b""),
         (rb"rafting_tpu\.tools\.noderun", b"rafting_tpu_torch.tools.noderun"),
         (rb"from rafting_tpu\.api import", b"from ..api import"),
+    ],
+    "testkit/chaos.py": [
+        (rb"^.*\bJAX_PLATFORMS\b.*\n", b""),
+        (rb"^.*election_mul: float = 3\.0\):\n", b""),
+        (rb"rafting_tpu\.tools\.noderun", b"rafting_tpu_torch.tools.noderun"),
     ],
 }
 
