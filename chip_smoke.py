@@ -8,9 +8,14 @@ no result line):
 1. probe   — a CUDA card must be present; prints its name and power limit.
 2. build   — nvcc builds the quorum-commit kernel from the sources here.
 3. kernel  — the CUDA kernel against its plain PyTorch version on the card,
-             bit for bit: P in {1,3,5,7,9,10}, G in {1, 1000, 300000},
-             random voter sets, ~half the lanes joint, an empty-mask lane,
-             and the main path's own [3, 100000, 3] shape.
+             bit for bit: P 1..10 at 1, 3, 4, 5, 1000, 1001, 300000 and
+             300003 lanes, random voter sets, ~half the lanes joint, an
+             empty-mask lane; and the main paths' [3, 100000, 3],
+             [5, 100000, 5] and [1, 10000, 3] (with two small shapes)
+             dense, transposed (the strided path) and as a view whose
+             storage offset breaks 16-byte alignment.  Every path below
+             must hand the kernel dense operands: a launch on its
+             strided path fails the phase.
 4. parity  — the port on CUDA against the port on the CPU: 512 groups,
              P=3 and P=5 with 3 voters, 80 ticks under load with one
              isolate/heal; then the nemesis case: 512 groups x 5 nodes
@@ -101,9 +106,11 @@ no result line):
              step-down recorded) and one round of the bank transfer soak
              (check_transfer_atomicity); acknowledged writes and reads by
              every client, committed transfers, one launch per node tick.
-14. profile — only with --profile: 8 headline ticks, then 8 nemesis ticks
-             inside the split-brain window, under torch.profiler: the top
-             kernels by device time and the device-busy share.
+``--profile`` runs probe, build and kernel, then 8 headline ticks and 8
+nemesis ticks inside the split-brain window under torch.profiler (the top
+kernels by device time, the device-busy share, and the kernels next to
+each headline qc_kernel, where no copy kernel may be), and stops without
+the result line.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; before it, one JSON line lists each kernel with its launches
@@ -111,8 +118,9 @@ on the path that launched it (the quorum kernel seven times: P=3 on the
 headline path, P=5 on the nemesis path, P=3 at N=1 per node tick on the
 runtime, api-1k and chaos paths, at N=1 per node_step on the oracle path,
 and P=3 on the snapshot path), its error against the plain version, its
-time, the plain version's time and its bound; each phase's line adds the
-kernel's device time per launch (CUDA events, inputs cold in L2).  The
+time, the plain version's time and its bound, its device time per launch
+(CUDA events, inputs cold in L2), that time's share of the bound, and the
+first design's device time on the same inputs.  The
 last line is the result object.  ``[time]`` lines give each phase's wall
 time and the process's resident memory and threads after it.
 """
@@ -161,6 +169,18 @@ def _mem() -> str:
             f"({st.get('Threads', '? ').strip()} in the OS)")
 
 
+def _os_threads() -> int:
+    """This process's OS thread count (0 where /proc does not say)."""
+    try:
+        with open("/proc/self/status") as f:
+            for ln in f:
+                if ln.startswith("Threads:"):
+                    return int(ln.split()[1])
+    except OSError:
+        pass
+    return 0
+
+
 def _release_host_memory() -> None:
     """Hand freed host memory back before the API phases start their
     thousands of threads: the collector, the CUDA caches (pinned host
@@ -196,11 +216,20 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load("quorum_commit")
     info = _build.build_info["quorum_commit"]
-    regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln]
+    # ptxas -v: each entry's registers and spill bytes, for the kernel at
+    # P = 3 and 5 and for the first design it is timed against.
+    regs, fn = {}, None
+    for ln in info["log"].splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if "'" in ln else ln
+        elif fn and ("spill stores" in ln or "registers" in ln):
+            regs[fn] = f"{regs.get(fn, '')} {ln.split(':')[-1].strip()}"
+    show = [f"{k}: {v}" for k, v in sorted(regs.items())
+            if any(t in k for t in ("qc_kernelILi3E", "qc_kernelILi5E",
+                                    "qc_kernel_v1ILi3E"))]
     log(f"[build] quorum_commit built in {info['seconds']:.2f}s "
         f"(load {time.perf_counter() - t0:.2f}s); ptxas: "
-        f"{' | '.join(regs[:3])}")
+        f"{' | '.join(show) or info['log'][-400:]}")
 
 
 def random_case(rng, shape, P, L, dev):
@@ -227,16 +256,39 @@ def random_case(rng, shape, P, L, dev):
             t(lead, torch.bool), t(voters), t(vnew))
 
 
+KERNEL_LANES = (1, 3, 4, 5, 1000, 1001, 300_000, 300_003)
+
+
+def laid_out(t: torch.Tensor, layout: str) -> torch.Tensor:
+    """``t`` stored dense, transposed (every axis reversed in memory, as
+    the step's inbox lanes come) or one element past a 16-byte boundary
+    (a view with a storage offset)."""
+    if layout == "transposed":
+        rev = tuple(range(t.dim() - 1, -1, -1))
+        return t.permute(rev).contiguous().permute(rev)
+    if layout == "offset":
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    return t
+
+
 def phase_kernel() -> None:
     from rafting_tpu_torch.ops.quorum import (
         quorum_commit_cuda, quorum_commit_ref,
     )
     rng = np.random.default_rng(1234)
     n = 0
-    cases = [(P, (G,)) for P in (1, 3, 5, 7, 9, 10)
-             for G in (1, 1000, 300_000)] + [(3, (3, 100_000))]
-    for P, shape in cases:
-        args = random_case(rng, shape, P, 64, "cuda")
+    cases = [(P, (G,), "dense") for P in range(1, 11)
+             for G in KERNEL_LANES]
+    cases += [(P, shape, layout) for P, shape in (
+        (3, (3, 100_000)), (5, (5, 100_000)), (3, (1, 10_000)),
+        (7, (3, 1001)), (10, (2, 3)))
+        for layout in ("dense", "transposed", "offset")]
+    for P, shape, layout in cases:
+        args = tuple(laid_out(a, layout)
+                     for a in random_case(rng, shape, P, 64, "cuda"))
         got = quorum_commit_cuda(*args)
         ref = quorum_commit_ref(*args)
         torch.cuda.synchronize()
@@ -249,12 +301,15 @@ def phase_kernel() -> None:
                      int(ref.reshape(-1)[i]), int(cpu.reshape(-1)[i]))
                     for i in bad]
             raise AssertionError(
-                f"kernel != plain at P={P} shape={shape}: (lane, [match, "
-                f"own_from, last, commit, can_lead, voters, voters_new], "
-                f"kernel, plain on card, plain on cpu) {rows}")
+                f"kernel != plain at P={P} shape={shape} {layout}: (lane, "
+                f"[match, own_from, last, commit, can_lead, voters, "
+                f"voters_new], kernel, plain on card, plain on cpu) {rows}")
         n += 1
     log(f"[kernel] quorum_commit == quorum_commit_ref bit for bit in {n} "
-        f"cases (P 1..10, G up to 300000, joint and empty-mask lanes)")
+        f"cases (P 1..10 at {len(KERNEL_LANES)} lane counts up to 300003; "
+        f"[3, 100000, 3], [5, 100000, 5] and three more shapes dense, "
+        f"transposed and at a misaligned storage offset; joint and "
+        f"empty-mask lanes)")
 
 
 def _compare(a, b, path: str) -> None:
@@ -274,7 +329,9 @@ def _compare(a, b, path: str) -> None:
 
 def phase_parity() -> None:
     from rafting_tpu_torch import DeviceCluster, EngineConfig
+    from rafting_tpu_torch.ops import quorum
     for P, nv in ((3, None), (5, 3)):
+        quorum.reset_launch_counts()
         cfg = EngineConfig(n_groups=512, n_peers=P, log_slots=64, batch=8,
                            max_submit=8)
         cl = {d: DeviceCluster(cfg, seed=11, n_voters=nv, device=d)
@@ -286,6 +343,8 @@ def phase_parity() -> None:
                 if t == 55:
                     c.heal()
                 c.tick(submit_n=2)
+        if _launches("parity") != 80:
+            raise AssertionError("[parity] want one launch per CUDA tick")
         a, b = cl["cuda"], cl["cpu"]
         _compare(a.states, b.states, "state")
         _compare(a.last_info, b.last_info, "info")
@@ -300,6 +359,7 @@ def phase_parity_nemesis() -> None:
         DeviceCluster, EngineConfig, run_cluster_ticks_nemesis,
     )
     from rafting_tpu_torch.core.types import tree_map
+    from rafting_tpu_torch.ops import quorum
     from rafting_tpu_torch.testkit import nemesis
     cfg = EngineConfig(n_groups=512, n_peers=5, log_slots=64, batch=8,
                        max_submit=8, trace_depth=16, heat=True,
@@ -307,6 +367,7 @@ def phase_parity_nemesis() -> None:
     sched = nemesis.concat(nemesis.chaos_mix(5, 90, seed=13, device="cpu"),
                            nemesis.healthy(5, 30, device="cpu"))
     out = {}
+    quorum.reset_launch_counts()
     for d in ("cuda", "cpu"):
         c = DeviceCluster(cfg, seed=13, device=d)
         load = torch.full((5, cfg.n_groups), 4, dtype=torch.int32,
@@ -314,6 +375,9 @@ def phase_parity_nemesis() -> None:
         out[d] = run_cluster_ticks_nemesis(
             cfg, c.states, c.inflight, c.last_info,
             tree_map(lambda a: a.to(d), sched), load, device=d)
+    if _launches("parity-nemesis") != sched.n_ticks:
+        raise AssertionError("[parity-nemesis] want one launch per CUDA "
+                             "tick")
     for name, a, b in zip(("state", "inflight", "info"), out["cuda"],
                           out["cpu"]):
         _compare(a, b, name)
@@ -366,32 +430,82 @@ def _device_us(fn, reps: int = 100) -> float:
     return per_launch_us(both) - per_launch_us(flush.zero_)
 
 
-def _kernel_entry(name: str, s, launches: int) -> dict:
-    """The quorum kernel at a path's own shapes — that run's final match
-    matrix and lanes — against its plain version, timed, with its bound
-    and its device time per launch.  These launches are not counted as
+def _launch_v1(args) -> torch.Tensor:
+    """The first design of the kernel (one thread a lane, scalar loads),
+    kept in the .cu for timing only, on contiguous copies of ``args``."""
+    from rafting_tpu_torch.ops import _build, quorum
+    out = torch.empty(args[0].shape[:-1], dtype=torch.int32, device="cuda")
+    quorum._launch(_build.load("quorum_commit").qc_launch_v1,
+                   torch.cuda.current_stream().cuda_stream, out, *args)
+    return out
+
+
+# The operands of the quorum kernel's last CUDA launch, as phase 10 of the
+# tick passed them (strides included): _kernel_entry times the kernel on
+# these, so the timed layout is the one the path launched.
+_TICK_OPERANDS = [None]
+
+
+def _capture_tick_operands() -> None:
+    """Wrap phase 10's call to keep each CUDA launch's operands."""
+    import rafting_tpu_torch.core.step as step
+    real = step.quorum_commit
+
+    def quorum_commit(cfg, match_full, log, commit, own_from, can_lead,
+                      voters, voters_new):
+        if match_full.is_cuda:
+            _TICK_OPERANDS[0] = (match_full, own_from, log.last, commit,
+                                 can_lead, voters, voters_new)
+        return real(cfg, match_full, log, commit, own_from, can_lead,
+                    voters, voters_new)
+    step.quorum_commit = quorum_commit
+
+
+def _launches(where: str) -> int:
+    """The quorum kernel's launches since the counts were reset.  Fails if
+    any took the kernel's strided path: the tick hands it dense
+    operands."""
+    from rafting_tpu_torch.ops import quorum
+    n = quorum.launch_counts["quorum_commit"]
+    strided = quorum.strided_launches["quorum_commit"]
+    if strided:
+        raise AssertionError(f"[{where}] {strided} of {n} quorum kernel "
+                             f"launches took the strided path")
+    return n
+
+
+def _kernel_entry(name: str, launches: int) -> dict:
+    """The quorum kernel at a path's own shapes — the operands of the
+    path's last launch, as its tick passed them — against its plain
+    version, timed, with its bound, its device time per launch and the
+    first design's on the same inputs.  These launches are not counted as
     the path's."""
-    from rafting_tpu_torch import LEADER
-    from rafting_tpu_torch.core.types import conf_new_of, conf_voters_of
     from rafting_tpu_torch.ops import quorum
 
-    args = (s.match_idx.contiguous(), s.own_from, s.log.last, s.commit,
-            s.active & (s.role == LEADER), conf_voters_of(s.conf_word),
-            conf_new_of(s.conf_word))
+    args, _TICK_OPERANDS[0] = _TICK_OPERANDS[0], None
+    if args is None:
+        raise AssertionError(f"{name}: the path launched no kernel")
+    if args[0].dim() == 2:       # one node's [G, P]: a view, as the wrapper
+        args = tuple(a.unsqueeze(0) for a in args)
     got = quorum.quorum_commit_cuda(*args)
     ref = quorum.quorum_commit_ref(*args)
     err = int((got.long() - ref.long()).abs().max())
     ms = _time_ms(lambda: quorum.quorum_commit_cuda(*args), 200)
     plain_ms = _time_ms(lambda: quorum.quorum_commit_ref(*args), 50)
     device_us = _device_us(lambda: quorum.quorum_commit_cuda(*args))
+    dense = tuple(a.contiguous() for a in args)
+    if not torch.equal(_launch_v1(dense), ref):
+        raise AssertionError(f"{name}: the first design != plain")
+    v1_us = _device_us(lambda: _launch_v1(dense))
     nbytes = sum(a.numel() * a.element_size() for a in args) + \
         got.numel() * got.element_size()
-    P = s.match_idx.shape[-1]
+    P = args[0].shape[-1]
     # Per lane: two masked sorting networks (P rounds of ~P-1 min/max
     # pairs), the full-lane min and the gates — ~4*P*P + 8*P + 16 ops.
     ops = got.numel() * (4 * P * P + 8 * P + 16)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / INT_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes, bound_ops)
     if err != 0:
         raise AssertionError(f"{name}: kernel != plain on the path's inputs "
                              f"(max abs err {err})")
@@ -399,18 +513,19 @@ def _kernel_entry(name: str, s, launches: int) -> dict:
             "source": "rafting_tpu_torch/ops/csrc/quorum_commit.cu",
             "replaces": "rafting_tpu/ops/quorum.py:231",
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bound_bytes, bound_ops),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None, "bytes": nbytes, "device_us": device_us,
-            "shape": list(s.match_idx.shape)}
+            "share_of_bound": bound_ms * 1e3 / device_us,
+            "v1_device_us": v1_us, "shape": list(args[0].shape)}
 
 
 def _kernel_line(k: dict) -> str:
     return (f"{k['ms'] * 1e3:.2f} us/launch (device {k['device_us']:.2f} us"
-            f", plain {k['plain_ms'] * 1e3:.2f} us, bound "
-            f"{k['bound_ms'] * 1e3:.2f} us, {k['bytes']} bytes, shape "
-            f"{k['shape']})")
+            f", {k['share_of_bound']:.0%} of the bound; first design "
+            f"{k['v1_device_us']:.2f} us; plain {k['plain_ms'] * 1e3:.2f} us,"
+            f" bound {k['bound_ms'] * 1e3:.2f} us, {k['bytes']} bytes, "
+            f"shape {k['shape']})")
 
 
 def phase_main() -> dict:
@@ -444,7 +559,7 @@ def phase_main() -> dict:
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = quorum.launch_counts["quorum_commit"]
+    launches = _launches("main")
     after = int(committed_entries(c.states))
     if launches != T:
         raise AssertionError(f"quorum kernel launched {launches} times in "
@@ -464,7 +579,7 @@ def phase_main() -> dict:
                              "the drain")
     peak = torch.cuda.max_memory_allocated()
 
-    kern = _kernel_entry("quorum_commit", c.states, launches)
+    kern = _kernel_entry("quorum_commit", launches)
     commits = after - before
     log(f"[main] 100000 groups x 3 nodes: {commits} commits in {T} ticks, "
         f"{commits / secs:.0f} commits/s, {secs / T * 1e3:.3f} ms/tick; "
@@ -562,7 +677,7 @@ def phase_nemesis() -> dict:
             f"ms/tick, committed {committed}, groups without exactly one "
             f"leader {int((n_lead != 1).sum())}, step-downs so far "
             f"{int(downs)}")
-    launches = quorum.launch_counts["quorum_commit"]
+    launches = _launches("nemesis")
     if launches != T:
         raise AssertionError(f"quorum kernel launched {launches} times in "
                              f"{T} nemesis ticks (want one per tick)")
@@ -580,7 +695,7 @@ def phase_nemesis() -> dict:
         raise AssertionError("no CheckQuorum step-down in the split-brain "
                              f"window (ticks {split.start}..{split.stop})")
     peak = torch.cuda.max_memory_allocated()
-    kern = _kernel_entry("quorum_commit[P=5 nemesis]", states, launches)
+    kern = _kernel_entry("quorum_commit[P=5 nemesis]", launches)
     log(f"[nemesis] {G} groups x {N} nodes, trace/heat/check_quorum/"
         f"debug_checks on, {WARM} warm-up + {CHAOS} chaos + "
         f"{NEMESIS_SETTLE} settle ticks: "
@@ -814,7 +929,7 @@ def phase_runtime() -> dict:
                     f"differing commits, {int((leaders() != 1).sum())} "
                     f"without exactly one leader")
         acked, everywhere = audit.check(sorted(c.nodes))
-        launches = quorum.launch_counts["quorum_commit"]
+        launches = _launches("runtime")
         if launches != ticks or meas_launches != meas_ticks:
             raise AssertionError(f"quorum kernel launched {launches} times "
                                  f"in {ticks} node ticks (want one per "
@@ -822,8 +937,7 @@ def phase_runtime() -> dict:
         if acked == 0:
             raise AssertionError("no acknowledged submission in the sample")
         peak = torch.cuda.max_memory_allocated()
-        kern = _kernel_entry("quorum_commit[runtime]", c.nodes[0].state,
-                             launches)
+        kern = _kernel_entry("quorum_commit[runtime]", launches)
         native = bool(native_available() and node0._native_host)
         log(f"[runtime] {G} groups x 3 RaftNodes on the card, pipelined, "
             f"NullProvider: settle {settle} rounds ({settle_s:.1f}s incl. "
@@ -973,14 +1087,16 @@ def phase_api_testnode() -> None:
         load(TESTNODE_LOAD_S)
         a1 = [acked(i) for i in range(3)]
 
+        def status(i: int) -> dict:
+            try:
+                with open(os.path.join(dirs[i], "status.json")) as f:
+                    return json.load(f)
+            except (OSError, ValueError):
+                return {}
+
         def leader():
             for i in range(3):
-                try:
-                    with open(os.path.join(dirs[i], "status.json")) as f:
-                        st = json.load(f)
-                except (OSError, ValueError):
-                    continue
-                if st.get("leader") and procs[i].p.poll() is None:
+                if status(i).get("leader") and procs[i].p.poll() is None:
                     return i
             return None
         _until(lambda: leader() is not None, "a node reporting leader", 60)
@@ -990,8 +1106,16 @@ def phase_api_testnode() -> None:
         procs[victim].p.wait(timeout=60)
         survivors = [i for i in range(3) if i != victim]
         base = sum(acked(i) for i in survivors)
-        _until(lambda: sum(acked(i) for i in survivors) > base,
-               "an acknowledgement after the kill", 120)
+        try:
+            _until(lambda: sum(acked(i) for i in survivors) > base,
+                   "an acknowledgement after the kill", 120)
+        except AssertionError as e:
+            raise AssertionError(f"{e} (killed node{victim}); each "
+                                 f"survivor's status.json and output:\n"
+                                 + "\n---\n".join(
+                                     f"node{i} {status(i)}\n"
+                                     f"{procs[i].tail()}"
+                                     for i in survivors)) from None
         first_ack_s = time.perf_counter() - t_kill
         procs[victim] = _NodeProc(xmls[victim])
         pids.append(procs[victim].p.pid)
@@ -1109,6 +1233,10 @@ API_WAVE_FLOOR, API_FLOOR = 0.2, 0.9
 API_SAMPLE = 64
 API_VALUE = 64
 API_MEM_S = 5.0
+# A forward holds no thread while it waits (api/stub.py ForwardPool, at
+# most 32 workers a container; transport/forward_io.py, one reactor a
+# transport): a wave once started ~3,900 (PERF.md §7).
+API_MAX_THREADS = 1500
 
 
 def _quantile(xs, q: float) -> float:
@@ -1133,6 +1261,8 @@ def _qc_device_us(trace: str) -> tuple:
 
 
 def phase_api_1k() -> dict:
+    import collections
+    import re
     import tempfile
     import threading
     from rafting_tpu_torch import LEADER, RaftConfig, RaftContainer, \
@@ -1196,9 +1326,9 @@ def phase_api_1k() -> dict:
         log(f"[api-1k] every group led and ready after {settle_s:.1f}s; "
             f"{_mem()}")
         stubs = [cs[g % 3].get_stub(names[g]) for g in range(API_GROUPS)]
-        # A wave starts ~4,000 threads (each forwarded operation runs a
-        # client thread and a serving thread); at the default 8 MiB stack
-        # that maps 32 GiB.  2 MiB each is ample for them.
+        # A wave once ran each forwarded operation on a client thread and
+        # a serving thread of its own, ~4,000 in all; at the default 8 MiB
+        # stack that mapped 32 GiB.  2 MiB each is ample for any thread.
         stack0 = threading.stack_size(2 << 20)
 
         def wave(w: int) -> dict:
@@ -1300,9 +1430,20 @@ def phase_api_1k() -> dict:
 
         def sample_mem():
             # The process has been killed inside a wave (PERF.md §7):
-            # its memory and threads every API_MEM_S, until the end.
-            while not stop_mem.wait(API_MEM_S):
-                log(f"[api-1k]   [mem] {_mem()}")
+            # its memory and threads every API_MEM_S, until the end, and
+            # the OS thread count's peak, read every 0.25 s.
+            k = 0
+            while not stop_mem.wait(0.25):
+                n = _os_threads()
+                if n > peak_threads[0]:
+                    peak_threads[:] = [n, collections.Counter(
+                        re.sub(r"[-\d>]+$", "",
+                               t.name.split("(")[-1].rstrip(")"))
+                        for t in threading.enumerate()).most_common(5)]
+                k += 1
+                if k % int(API_MEM_S / 0.25) == 0:
+                    log(f"[api-1k]   [mem] {_mem()}")
+        peak_threads = [_os_threads(), []]   # and the Python threads then
         threading.Thread(target=sample_mem, daemon=True).start()
         for w in range(API_WARMUP):
             logged_wave(w, "warm-up")
@@ -1394,13 +1535,22 @@ def phase_api_1k() -> dict:
             c.destroy()
         # The three loops have stopped: every node tick launched the
         # kernel once.
-        launches = quorum.launch_counts["quorum_commit"]
+        launches = _launches("api-1k")
         all_ticks = sum(c.node.ticks for c in cs)
         if launches != all_ticks:
             raise AssertionError(
                 f"quorum kernel: {launches} launches in {all_ticks} node "
                 f"ticks of the three containers (want one per tick)")
-        kern = _kernel_entry("quorum_commit[api-1k]", node0.state, launches)
+        import resource
+        rss_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        log(f"[api-1k] peak over the phase: {peak_threads[0]} OS threads "
+            f"(limit {API_MAX_THREADS}; the most common Python threads "
+            f"then {peak_threads[1]}), rss {rss_peak:.2f} GiB (the "
+            f"process's peak so far)")
+        if peak_threads[0] > API_MAX_THREADS:
+            raise AssertionError(f"{peak_threads[0]} OS threads at the peak "
+                                 f"(limit {API_MAX_THREADS})")
+        kern = _kernel_entry("quorum_commit[api-1k]", launches)
         log(f"[api-1k] BASELINE configs[1]: {API_GROUPS} groups (n_groups "
             f"{API_LANES}) x 3 RaftContainers on the card over TCP, KV machine, "
             f"PreVote off; every group led and ready "
@@ -1462,12 +1612,10 @@ ORACLE_RUNS = (
 
 def phase_oracle() -> dict:
     from rafting_tpu_torch import EngineConfig
-    from rafting_tpu_torch.core.types import tree_map
     from rafting_tpu_torch.ops import quorum
     from rafting_tpu_torch.testkit.parity import run_parity
 
     launches = steps = 0
-    kern_state = None
     t_phase = time.perf_counter()
     for name, kw, seed, ticks in ORACLE_RUNS:
         cfg = EngineConfig(**kw)
@@ -1475,7 +1623,7 @@ def phase_oracle() -> dict:
         t0 = time.perf_counter()
         states, st = run_parity(seed, ticks, cfg, "cuda", **ORACLE_CHAOS)
         secs = time.perf_counter() - t0
-        n = quorum.launch_counts["quorum_commit"]
+        n = _launches("oracle")
         if n != st["steps"]:
             raise AssertionError(f"[oracle] ({name}): {n} kernel launches "
                                  f"in {st['steps']} node_step calls")
@@ -1493,8 +1641,6 @@ def phase_oracle() -> dict:
             extra = f", {ev} recorder events, {rpcs} heat rpcs"
         launches += n
         steps += st["steps"]
-        if kern_state is None:
-            kern_state = tree_map(lambda a: a.unsqueeze(0), states[0])
         log(f"[oracle] ({name}) {cfg.n_groups} groups x {cfg.n_peers} "
             f"nodes, {ticks} ticks, seed {seed}: node_step on CUDA == "
             f"oracle on the host, every state lane, outbound message and "
@@ -1505,7 +1651,7 @@ def phase_oracle() -> dict:
             f"(oracle {st['oracle_s']:.1f}s, step "
             f"{st['step_s'] / st['steps'] * 1e3:.2f} ms/call); "
             f"{n} quorum_commit launches")
-    kern = _kernel_entry("quorum_commit[oracle]", kern_state, launches)
+    kern = _kernel_entry("quorum_commit[oracle]", launches)
     log(f"[oracle] {steps} node_step calls lane-exact in "
         f"{time.perf_counter() - t_phase:.1f}s; quorum_commit {launches} "
         f"launches, {_kernel_line(kern)}")
@@ -1578,7 +1724,7 @@ def phase_snapshot() -> dict:
         raise AssertionError(f"victim stuck on {int((~caught).sum())} "
                              f"groups after {heal} rounds")
     run(40)
-    launches = quorum.launch_counts["quorum_commit"]
+    launches = _launches("snapshot")
     v_base = host(c.states.log.base)[victim]
     if not (v_base > victim_tail).all():
         raise AssertionError(f"{int((v_base <= victim_tail).sum())} groups "
@@ -1590,7 +1736,7 @@ def phase_snapshot() -> dict:
         raise AssertionError(f"quorum kernel launched {launches} times in "
                              f"{ticks} ticks (want one per tick)")
     peak = torch.cuda.max_memory_allocated()
-    kern = _kernel_entry("quorum_commit[snapshot]", c.states, launches)
+    kern = _kernel_entry("quorum_commit[snapshot]", launches)
     log(f"[snapshot] BASELINE configs[4]: {G} groups x 3 nodes, debug "
         f"checks on, seed 5, compaction every 16 ticks: one leader per "
         f"group after 60 ticks; node {victim} isolated, every floor past "
@@ -1657,14 +1803,11 @@ def phase_chaos() -> dict:
         committed = json.load(f)["config"]["timeline_canonical"]
     root = tempfile.mkdtemp(prefix="chaos-")
     node_ticks = [0]
-    last_state = [None]
     orig_tick = RaftNode.tick
 
     def counted_tick(self):
         node_ticks[0] += 1
-        out = orig_tick(self)
-        last_state[0] = self.state
-        return out
+        return orig_tick(self)
 
     def soak(tag, *argv):
         args = chaos_run.parse_args(
@@ -1678,7 +1821,7 @@ def phase_chaos() -> dict:
             doc["phases"] = {p["phase"]: p for p in json.load(f)["phases"]}
         log(f"[chaos] ({tag}) {secs:.1f}s: " + ", ".join(
             f"{k} at {v['t_s']}s" for k, v in doc["phases"].items()))
-        n = quorum.launch_counts["quorum_commit"]
+        n = _launches("chaos")
         if not ok:
             raise AssertionError(f"[chaos] ({tag}): the verdict did not "
                                  f"match the expectation: {doc['verdict']}")
@@ -1762,17 +1905,19 @@ def phase_chaos() -> dict:
         RaftNode.tick = orig_tick
         _artifact.ARTIFACT_DIR = art0
         shutil.rmtree(root, ignore_errors=True)
-    # The kernel on the last node state the soaks produced.
-    kern = _kernel_entry("quorum_commit[chaos]", last_state[0], launches)
+    kern = _kernel_entry("quorum_commit[chaos]", launches)
     log(f"[chaos] four soaks in {time.perf_counter() - t_phase:.1f}s; "
         f"quorum_commit {launches} launches in as many node ticks, "
         f"{_kernel_line(kern)}")
     return kern
 
 
-def _profile(label: str, tick) -> None:
+def _profile(label: str, tick, neighbours: bool = False) -> None:
     """8 ticks of ``tick()`` under torch.profiler: the top kernels by
-    device time and the device-busy share of the wall time."""
+    device time and the device-busy share of the wall time; with
+    ``neighbours``, the kernels next to each qc_kernel.  Only the first
+    profiler session of a process records kernels on the H100 machine
+    (PERF.md §6), so that check goes with the first call."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     T = 8
@@ -1793,6 +1938,31 @@ def _profile(label: str, tick) -> None:
     for e in rows[:10] + [e for e in rows if "qc_kernel" in e.key]:
         log(f"[profile {label}]   {e.self_device_time_total / T:9.1f} "
             f"us/tick {e.count / T:6.1f}/tick  {e.key[:70]}")
+    if not neighbours:
+        return
+    # The kernels the device ran on either side of each qc_kernel: the
+    # launcher copies nothing, so no copy kernel sits next to it.
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(os.path.join(d, "trace.json"))
+        with open(os.path.join(d, "trace.json")) as f:
+            kern = sorted((e for e in json.load(f)["traceEvents"]
+                           if e.get("cat") == "kernel"),
+                          key=lambda e: e["ts"])
+    names = [e["name"] for e in kern]
+    at = [i for i, n in enumerate(names) if "qc_kernel" in n]
+    if not at:
+        raise AssertionError(f"[profile {label}] no qc_kernel in the trace")
+    near = [names[j] for i in at for j in (i - 1, i + 1)
+            if 0 <= j < len(names)]
+    copies = [n for n in near if "copy" in n.lower()]
+    log(f"[profile {label}] {len(at)} qc_kernel launches; the kernels next "
+        f"to the first: {[n[:60] for n in names[max(at[0] - 2, 0):at[0]]]} "
+        f"before, {[n[:60] for n in names[at[0] + 1:at[0] + 2]]} after; "
+        f"copy kernels next to any: {len(copies)}")
+    if copies:
+        raise AssertionError(f"[profile {label}] a copy kernel next to "
+                             f"qc_kernel: {copies[:3]}")
 
 
 def phase_profile() -> None:
@@ -1808,7 +1978,8 @@ def phase_profile() -> None:
     c = DeviceCluster(cfg, seed=0, device="cuda")
     for _ in range(60):
         c.tick(submit_n=cfg.max_submit)
-    _profile("headline", lambda: c.tick(submit_n=cfg.max_submit))
+    _profile("headline", lambda: c.tick(submit_n=cfg.max_submit),
+             neighbours=True)
     del c
 
     cfg = nemesis_cfg()
@@ -1845,6 +2016,12 @@ def main() -> int:
     sys.path.insert(0, HERE)
     t0 = time.perf_counter()
     card = phase_probe()
+    _capture_tick_operands()
+    if "--profile" in sys.argv[1:]:
+        for p in (phase_build, phase_kernel, phase_profile):
+            _timed(p)
+        print(card)
+        return 0
     for phase in (phase_build, phase_kernel, phase_parity,
                   phase_parity_nemesis):
         _timed(phase)
@@ -1856,12 +2033,9 @@ def main() -> int:
     _timed(phase_api_testnode)
     for phase in (phase_api_1k, phase_oracle, phase_snapshot, phase_chaos):
         kernels.append(_timed(phase))
-    if "--profile" in sys.argv[1:]:
-        _timed(phase_profile)
     log(f"[time] whole script {time.perf_counter() - t0:.1f}s")
     for k in kernels:
-        for extra in ("bytes", "device_us", "shape"):
-            del k[extra]
+        del k["bytes"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -269,8 +269,10 @@ class RaftStub:
     def _forwarded(self, payload: bytes,
                    budget: Optional[float] = None,
                    read: bool = False) -> Future:
-        """Relay to the leader from a worker thread (the forward channel is
-        a blocking ephemeral connection).  Elections and readiness are
+        """Relay to the leader as a coroutine on the transport's reactor
+        (transport/forward_io.py Task): no thread waits on the remote
+        reply, a local commit or a backoff, and closing the transport
+        fails the operation if it is in flight.  Elections and readiness are
         transient: while the operation keeps being REFUSED (locally or by
         the remote serve side) without ever entering a log, re-resolve the
         hint and retry — but BOUNDED twice over: ``budget`` (default the
@@ -305,17 +307,17 @@ class RaftStub:
                 # budget from turning into a zero-timeout busy loop.
                 return max(0.05, overall - _time.monotonic())
 
-            def backoff(last_refusal: Exception) -> None:
-                # Count + sleep for ONE refusal-driven retry.  Raises the
-                # refusal once any bound trips: redirect cap, wall
-                # deadline, or the shared RETRY BUDGET — a drained bucket
-                # means the fleet is already refusing at scale, and the
-                # anti-amplification move is to surface the refusal NOW
-                # rather than add retry load (api/retry.py).  Sleep
-                # honors the server's retry-after hint when the refusal
-                # carries one (jittered UP only — retrying before the
-                # server's window cannot see a different decision), else
-                # jittered exponential (0.05s doubling, capped at 0.5s).
+            def backoff(last_refusal: Exception) -> float:
+                # Count ONE refusal-driven retry and return its sleep.
+                # Raises the refusal once any bound trips: redirect cap,
+                # wall deadline, or the shared RETRY BUDGET — a drained
+                # bucket means the fleet is already refusing at scale, and
+                # the anti-amplification move is to surface the refusal NOW
+                # rather than add retry load (api/retry.py).  Sleep honors
+                # the server's retry-after hint when the refusal carries
+                # one (jittered UP only — retrying before the server's
+                # window cannot see a different decision), else jittered
+                # exponential (0.05s doubling, capped at 0.5s).
                 nonlocal retries, hint_override
                 tgt = evac_target_of(last_refusal)
                 if tgt is not None and tgt != node.node_id:
@@ -333,7 +335,29 @@ class RaftStub:
                 else:
                     delay = (min(0.5, 0.05 * (2 ** min(retries, 4)))
                              * random.uniform(0.5, 1.5))
-                _time.sleep(min(delay, left()))
+                return min(delay, left())
+
+            def remote(hint):
+                # The round trip as a future.  The port's transports send
+                # it without a thread (forward_async); a transport with
+                # only the blocking calls gets a thread for it, as every
+                # forward had before.
+                t = node.transport
+                if hasattr(t, "forward_async"):
+                    return t.forward_async(hint, self.lane, payload,
+                                           timeout=left(), read=read)
+                op = t.forward_read if read else t.forward_submit
+                f: Future = Future()
+
+                def call():
+                    try:
+                        f.set_result(op(hint, self.lane, payload,
+                                        timeout=left()))
+                    except Exception as e:
+                        f.set_exception(e)
+                threading.Thread(target=call, daemon=True,
+                                 name=f"raft-fwd-{self.name}").start()
+                return f
 
             try:
                 tenant = self.tenant
@@ -343,8 +367,6 @@ class RaftStub:
                 else:
                     def local_op(g, p):
                         return node.submit(g, p, tenant=tenant)
-                remote_op = (node.transport.forward_read if read
-                             else node.transport.forward_submit)
                 while True:
                     # Resolve a target: ourselves if leadership landed
                     # here, else the current hint.
@@ -358,7 +380,7 @@ class RaftStub:
                                 # Marked pre-log refusal: never entered
                                 # the log — keep resolving (same
                                 # treatment as a remote REFUSED reply).
-                                backoff(exc)
+                                yield backoff(exc)
                                 continue
                             # Accepted (or pending): wait for the result.
                             # A MARKED transient refusal raised later
@@ -368,7 +390,7 @@ class RaftStub:
                             # failure surfaces: an abort after acceptance
                             # may still commit cluster-wide.
                             try:
-                                out.set_result(fut.result(timeout=left()))
+                                out.set_result((yield fut, left()))
                                 return
                             except _FutTimeout:
                                 # Accepted but not resolved inside the
@@ -380,7 +402,7 @@ class RaftStub:
                             except Exception as e:
                                 if (is_refusal(e) and type(e).__name__
                                         in self._TRANSIENT_REFUSALS):
-                                    backoff(e)
+                                    yield backoff(e)
                                     continue
                                 raise
                         hint, hint_override = (
@@ -388,20 +410,23 @@ class RaftStub:
                             else node.leader_hint(lane), None)
                         if hint is not None and hint != node.node_id:
                             break
-                        backoff(NotLeaderError(lane, None))
+                        yield backoff(NotLeaderError(lane, None))
                     br = self._breakers.get(hint)
                     if not br.allow():
                         # Circuit open: don't even connect.  Back off by
                         # the breaker's own cooldown hint, then re-resolve
                         # the target — leadership may have moved off the
                         # sick peer in the meantime.
-                        backoff(as_refusal(OverloadError(
+                        yield backoff(as_refusal(OverloadError(
                             f"peer {hint}: circuit open",
                             retry_after_s=br.retry_after_s())))
                         continue
                     try:
-                        ok, raw = remote_op(hint, self.lane, payload,
-                                            timeout=left())
+                        ok, raw = yield remote(hint), left() + 1.0
+                    except _FutTimeout:
+                        # The transport's deadline is left() + 1 s too;
+                        # the blocking round trip's socket timed out so.
+                        ok, raw = False, b"timed out"
                     except Exception:
                         br.failure()   # transport error: peer unreachable
                         raise
@@ -432,7 +457,7 @@ class RaftStub:
                         else:
                             exc = wire_refusal(kind, detail)
                         if kind in self._TRANSIENT_REFUSALS:
-                            backoff(exc)
+                            yield backoff(exc)
                             continue
                         # Permanent refusal (ObsoleteContext, plain
                         # StorageFault): surface the rebuilt TYPE
@@ -443,8 +468,9 @@ class RaftStub:
             except Exception as e:
                 if not out.done():
                     out.set_exception(e)
-        threading.Thread(target=run, daemon=True,
-                         name=f"raft-fwd-{self.name}").start()
+        from ..transport.forward_io import Task, reactor_of
+        Task(reactor_of(node.transport, f"raft-fwd-io-{node.node_id}"),
+             run(), out)
         return out
 
 

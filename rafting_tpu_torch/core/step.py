@@ -791,10 +791,15 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
     # ---- 10. commit advance ------------------------------------------------
     # Self column = the log tail, or its durable prefix when the host says
     # so; the masked quorum order statistic runs in the CUDA kernel on
-    # CUDA tensors (one launch for the whole cluster).
+    # CUDA tensors (one launch for the whole cluster).  The where writes
+    # match_full dense in [N, G, P] order even when match_idx arrives with
+    # the inbox's transposed strides, so the kernel reads whole rows.
     self_match = log.last if host.durable_tail is None \
         else torch.minimum(log.last, host.durable_tail)
-    match_full = torch.where(self_hot, self_match.unsqueeze(-1), match_idx)
+    match_full = torch.where(self_hot, self_match.unsqueeze(-1), match_idx,
+                             out=torch.empty_like(
+                                 match_idx,
+                                 memory_format=torch.contiguous_format))
     commit = quorum_commit(cfg, match_full, log, commit, own_from,
                            active & (role == LEADER), voters2, vnew2)
     match_idx = match_full

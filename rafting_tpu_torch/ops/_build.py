@@ -30,8 +30,8 @@ _P = ctypes.c_void_p
 KERNELS = {
     "quorum_commit": (
         ["quorum_commit.cu"], ["quorum_commit.cuh"],
-        {"qc_launch": ([ctypes.c_int] + [_P] * 8
-                       + [ctypes.c_longlong, _P], ctypes.c_int)},
+        {"qc_launch": ([ctypes.c_char_p, _P], ctypes.c_int),
+         "qc_launch_v1": ([ctypes.c_char_p, _P], ctypes.c_int)},
     ),
 }
 

@@ -12,13 +12,15 @@ Every function takes any number of leading axes: the batched step passes
 
 ``quorum_commit`` dispatches by device: a CUDA tensor goes to the
 hand-written kernel (``csrc/quorum_commit.cu``, one launch per tick for
-the whole cluster); a CPU tensor goes to the plain version
+the whole cluster, reading the operands as stored); a CPU tensor goes to
+the plain version
 :func:`quorum_commit_ref`.  ``cfg.quorum_fixed`` keeps its bench-only
 meaning (the legacy fixed-majority baseline, plain torch).
 """
 
 from __future__ import annotations
 
+import struct
 import threading
 
 import torch
@@ -26,10 +28,12 @@ import torch
 I32 = torch.int32
 _I32_MAX = (1 << 31) - 1
 
-# Kernel launches, counted where each wrapper launches its kernel.  Several
-# nodes tick from their own threads in one process, so the count takes a
-# lock.
+# Kernel launches, counted where each wrapper launches its kernel, and of
+# those the launches that took the kernel's strided path (an operand not
+# dense in [N, G(, P)] order).  Several nodes tick from their own threads
+# in one process, so the counts take a lock.
 launch_counts = {"quorum_commit": 0}
+strided_launches = {"quorum_commit": 0}
 _count_lock = threading.Lock()
 
 
@@ -37,11 +41,13 @@ def reset_launch_counts() -> None:
     with _count_lock:
         for k in launch_counts:
             launch_counts[k] = 0
+            strided_launches[k] = 0
 
 
-def _count_launch(name: str) -> None:
+def _count_launch(name: str, strided: bool = False) -> None:
     with _count_lock:
         launch_counts[name] += 1
+        strided_launches[name] += bool(strided)
 
 
 def _bits(mask: torch.Tensor, P: int) -> torch.Tensor:
@@ -107,64 +113,110 @@ def quorum_commit_fixed(cfg, match_full, last, commit, own_from, can_lead
                          torch.where(can_full, full_idx, commit))
 
 
+_OPERANDS = ("match_full", "own_from", "last", "commit", "can_lead",
+             "voters", "voters_new")
+_DTYPES = (I32, I32, I32, I32, torch.bool, I32, I32)
+# The C launcher's descriptor (csrc/quorum_commit.cuh qc_parse): eight
+# pointers, match's sizes and strides, each lane's sizes and strides.
+_DESC = struct.Struct("<38q")
+_launchers: dict = {}
+
+
+def _bad_operand(k: int, args) -> ValueError:
+    want = "[N, G, P] with 1 <= P <= 10" if k == 0 \
+        else f"{list(args[0].shape[:-1])}, the lanes of match_full"
+    return ValueError(f"quorum_commit_cuda: {_OPERANDS[k]} has shape "
+                      f"{list(args[k].shape)}; the kernel takes {want}")
+
+
+def _launch(fn, stream: int, out: torch.Tensor, m, a1, a2, a3, a4, a5,
+            a6) -> int:
+    """Pack the operands as stored (pointers, sizes, strides) into the C
+    launcher's descriptor and call ``fn(descriptor, stream)``.  Returns the
+    path the launcher took (0 dense, 1 strided); turns its error codes
+    into exceptions.  The launcher checks the shapes.  The operands are
+    those of :func:`quorum_commit_ref`, in its order."""
+    try:
+        desc = _DESC.pack(
+            m.data_ptr(), a1.data_ptr(), a2.data_ptr(), a3.data_ptr(),
+            a4.data_ptr(), a5.data_ptr(), a6.data_ptr(), out.data_ptr(),
+            *m.shape, *m.stride(), *a1.shape, *a1.stride(), *a2.shape,
+            *a2.stride(), *a3.shape, *a3.stride(), *a4.shape, *a4.stride(),
+            *a5.shape, *a5.stride(), *a6.shape, *a6.stride())
+    except struct.error:
+        # A rank the descriptor has no room for: find the operand.
+        args = (m, a1, a2, a3, a4, a5, a6)
+        want = (3,) + (2,) * 6
+        raise _bad_operand(next(k for k, t in enumerate(args)
+                                if t.dim() != want[k]), args) from None
+    code = fn(desc, stream)
+    if code <= -1000:
+        raise RuntimeError(f"quorum_commit kernel launch failed: CUDA "
+                           f"error {-1000 - code}")
+    if code < 0:
+        raise _bad_operand(-1 - code, (m, a1, a2, a3, a4, a5, a6))
+    return code
+
+
+def _launcher(index: int) -> tuple:
+    """The C launch function and a reader of the current stream's raw
+    handle, resolved once per device."""
+    got = _launchers.get(index)
+    if got is None:
+        from . import _build
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+            lambda i: torch.cuda.current_stream(i).cuda_stream)
+        got = _launchers[index] = (_build.load("quorum_commit").qc_launch,
+                                   raw)
+    return got
+
+
 def quorum_commit_cuda(match_full, own_from, last, commit, can_lead,
                        voters, voters_new) -> torch.Tensor:
     """Launch the CUDA quorum-commit kernel (same arguments and result
-    as :func:`quorum_commit_ref`).  One thread per lane over all leading
-    axes; raises on a tensor the kernel does not take, on a build failure
-    and on a launch error."""
-    from . import _build
-
-    P = match_full.shape[-1]
-    lanes = match_full.shape[:-1]
-    dev = match_full.device
-    if dev.type != "cuda":
-        raise ValueError("quorum_commit_cuda needs CUDA tensors")
-    if not 1 <= P <= 10:
-        raise ValueError(f"quorum_commit_cuda supports 1..10 peers, got {P}")
-    args = {"match_full": (match_full, I32, match_full.shape),
-            "own_from": (own_from, I32, lanes), "last": (last, I32, lanes),
-            "commit": (commit, I32, lanes),
-            "can_lead": (can_lead, torch.bool, lanes),
-            "voters": (voters, I32, lanes),
-            "voters_new": (voters_new, I32, lanes)}
-    for name, (t, dtype, shape) in args.items():
-        if t.device != dev or t.dtype != dtype or t.shape != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"quorum_commit_cuda: {name} must be a contiguous {dtype} "
-                f"tensor of shape {tuple(shape)} on {dev}; got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()})")
-    lib = _build.load("quorum_commit")
-    out = torch.empty(lanes, dtype=I32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.qc_launch(P, match_full.data_ptr(), own_from.data_ptr(),
-                        last.data_ptr(), commit.data_ptr(),
-                        can_lead.data_ptr(), voters.data_ptr(),
-                        voters_new.data_ptr(), out.data_ptr(), out.numel(),
-                        stream)
-    if err != 0:
-        raise RuntimeError(f"quorum_commit kernel launch failed: CUDA "
-                           f"error {err}")
-    _count_launch("quorum_commit")
+    as :func:`quorum_commit_ref`).  The operands are read as stored,
+    whatever their strides; nothing is copied first.  Raises on a tensor
+    the kernel does not take, on a build failure and on a launch error."""
+    args = (match_full, own_from, last, commit, can_lead, voters,
+            voters_new)
+    index = match_full.get_device()
+    if index < 0 or (match_full.dtype, own_from.dtype, last.dtype,
+                     commit.dtype, can_lead.dtype, voters.dtype,
+                     voters_new.dtype) != _DTYPES \
+            or (own_from.get_device(), last.get_device(),
+                commit.get_device(), can_lead.get_device(),
+                voters.get_device(), voters_new.get_device()) != \
+            (index,) * 6:
+        raise ValueError(
+            "quorum_commit_cuda needs CUDA tensors on one device, int32 "
+            "(can_lead bool); got " + ", ".join(
+                f"{n} {t.dtype} on {t.device}"
+                for n, t in zip(_OPERANDS, args)))
+    out = torch.empty(match_full.shape[:-1], dtype=I32,
+                      device=match_full.device)
+    if match_full.dim() == 2:           # one node: [G, P] and [G] lanes
+        args = tuple(t.unsqueeze(0) for t in args)
+    elif match_full.dim() > 3:          # leading axes fold into N
+        G, P = match_full.shape[-2:]
+        args = (match_full.view(-1, G, P),) + tuple(
+            t.view(-1, G) for t in args[1:])
+    fn, stream = _launcher(index)
+    strided = _launch(fn, stream(index), out, *args)
+    _count_launch("quorum_commit", strided)
     return out
 
 
 def quorum_commit(cfg, match_full, log, commit, own_from, can_lead,
                   voters, voters_new):
     """Dispatch: the fixed-majority baseline when ``cfg.quorum_fixed``
-    (bench A/B only); the CUDA kernel for CUDA tensors; the plain version
-    for CPU tensors."""
+    (bench A/B only); the CUDA kernel for CUDA tensors, as stored; the
+    plain version for CPU tensors."""
     if getattr(cfg, "quorum_fixed", False):
         return quorum_commit_fixed(cfg, match_full, log.last, commit,
                                    own_from, can_lead)
     if match_full.is_cuda:
-        # The kernel reads the lanes as stored; the step's lanes may come
-        # out of torch.where with transposed strides, so lay them out.
-        return quorum_commit_cuda(*(t.contiguous() for t in (
-            match_full, own_from, log.last, commit, can_lead, voters,
-            voters_new)))
+        return quorum_commit_cuda(match_full, own_from, log.last, commit,
+                                  can_lead, voters, voters_new)
     return quorum_commit_ref(match_full, own_from, log.last, commit,
                              can_lead, voters, voters_new)
 

@@ -129,6 +129,11 @@ class LoopbackTransport:
 
     def close(self) -> None:
         self.net.transports.pop(self.node_id, None)
+        if getattr(self, "_reactor", None) is not None:
+            # The stubs' forwards run on it (transport/forward_io.py);
+            # closing settles those in flight.
+            self._reactor.close()
+            self._reactor = None
 
     def send_slice(self, dst: int, packed: bytes) -> None:
         """Deliver a packed MSGS frame to dst (round-trips through the real
@@ -221,6 +226,45 @@ class LoopbackTransport:
             return False, b"peer down"
         return codec.serve_forward(t.submit_handler, group, payload, timeout,
                                    t.result_encoder)
+
+    def forward_async(self, peer: int, group: int, payload: bytes,
+                      timeout: float = 30.0, read: bool = False):
+        """``forward_submit`` (or, with ``read``, ``forward_read``) without
+        blocking: the returned future resolves with the same ``(ok, raw)``
+        from the leader future's done-callback, or at ``timeout`` on this
+        transport's reactor (transport/forward_io.py)."""
+        from concurrent.futures import Future, InvalidStateError
+
+        from .forward_io import Reactor, reactor_of
+        out = Future()
+        if not self._link_open(peer):
+            out.set_result((False, b"link down"))
+            return out
+        t = self.net.transports.get(peer)
+        if t is None:
+            out.set_result((False, b"peer down"))
+            return out
+        handler = t.read_handler if read else t.submit_handler
+        fut = Future()
+        if handler is None:
+            fut.set_result(None)
+        else:
+            try:
+                fut = handler(group, payload)
+            except Exception as e:   # formatted as serve_forward does
+                fut.set_exception(e)
+
+        def reply(f):                # the first of the two answers
+            try:
+                out.set_result(codec.serve_forward(
+                    handler and (lambda g, p: f), group, payload, 0.0,
+                    t.result_encoder))
+            except InvalidStateError:
+                pass
+        timer = reactor_of(self, f"raft-fwd-io-{self.node_id}").call_later(
+            timeout, lambda: reply(fut))
+        fut.add_done_callback(lambda f: (Reactor.cancel(timer), reply(f)))
+        return out
 
     def forward_read(self, peer: int, group: int, payload: bytes,
                      timeout: float = 30.0):

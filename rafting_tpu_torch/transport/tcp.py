@@ -265,6 +265,12 @@ class TcpTransport:
                 pass
         for t in self._threads:
             t.join(timeout=5)
+        if getattr(self, "_reactor", None) is not None:
+            # Closing settles every forward it holds; a forward after
+            # close starts a new one, as the blocking round trip still
+            # connected then.
+            self._reactor.close()
+            self._reactor = None
 
     @property
     def bound_port(self) -> int:
@@ -342,6 +348,10 @@ class TcpTransport:
     # -- inbound -------------------------------------------------------------
 
     def _accept_loop(self):
+        """Each accepted connection's first frame is read on the reactor
+        (transport/forward_io.py FirstFrame): a forward is served there,
+        anything else goes on to a reader thread (_on_first_frame)."""
+        from .forward_io import FirstFrame, reactor_of
         while not self._stop.is_set():
             try:
                 conn, _ = self._server.accept()
@@ -350,22 +360,37 @@ class TcpTransport:
             except OSError:
                 return
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            t = threading.Thread(target=self._read_loop, args=(conn,),
-                                 daemon=True)
-            t.start()
-            self._threads = [x for x in self._threads if x.is_alive()]
-            self._threads.append(t)
+            io = reactor_of(self, f"raft-fwd-io-{self.node_id}")
+            io.call_soon(FirstFrame(io, conn, self._on_first_frame).start)
 
-    def _read_loop(self, conn: socket.socket):
+    def _on_first_frame(self, conn: socket.socket, ftype: int, body: bytes,
+                        raw: bytes) -> None:
+        if ftype in (codec.FWD_REQ, codec.FWD_READ):
+            conn.settimeout(1.0)
+            try:
+                self._serve_forward(conn, body, read=ftype == codec.FWD_READ)
+            except (OSError, ValueError, struct.error):
+                conn.close()    # a malformed request ends the connection
+            return
+        t = threading.Thread(target=self._read_loop, args=(conn, raw),
+                             daemon=True)
+        t.start()
+        self._threads = [x for x in self._threads if x.is_alive()]
+        self._threads.append(t)
+
+    def _read_loop(self, conn: socket.socket, initial: bytes = b""):
         reader = codec.FrameReader()
         src: Optional[int] = None
         conn.settimeout(1.0)
         try:
             while not self._stop.is_set():
-                try:
-                    data = conn.recv(1 << 20)
-                except socket.timeout:
-                    continue
+                if initial:     # what the first-frame read took already
+                    data, initial = initial, b""
+                else:
+                    try:
+                        data = conn.recv(1 << 20)
+                    except socket.timeout:
+                        continue
                 if not data:
                     return
                 for ftype, body in reader.feed(data):
@@ -419,9 +444,11 @@ class TcpTransport:
                         return  # ephemeral connection: one fetch, then close
                     elif ftype == codec.FWD_REQ:
                         self._serve_forward(conn, body)
+                        conn = None     # the reply closes it
                         return  # ephemeral: one command, then close
                     elif ftype == codec.FWD_READ:
                         self._serve_forward(conn, body, read=True)
+                        conn = None     # the reply closes it
                         return  # ephemeral: one read, then close
                     elif ftype == codec.FWD_CONF:
                         group, op, tmo, a, b = codec.unpack_fwd_conf(body)
@@ -434,10 +461,31 @@ class TcpTransport:
             # peer) end the connection cleanly, same as transport errors.
             pass
         finally:
-            try:
-                conn.close()
-            except OSError:
-                pass
+            if conn is not None:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+
+    def forward_async(self, peer: int, group: int, payload: bytes,
+                      timeout: float = 30.0, read: bool = False):
+        """``forward_submit`` (or, with ``read``, ``forward_read``) without
+        blocking: the returned future resolves with the same ``(ok, raw)``
+        when the reply arrives.  Every forward of this transport shares
+        one reactor thread (transport/forward_io.py)."""
+        from concurrent.futures import Future
+
+        from .forward_io import Exchange, reactor_of
+        fut = Future()
+        if not self._link_open(peer):
+            fut.set_result((False, b"link cut (fault injection)"))
+            return fut
+        io = reactor_of(self, f"raft-fwd-io-{self.node_id}")
+        frame = codec.pack_fwd_req(group, payload, timeout,
+                                   codec.FWD_READ if read else codec.FWD_REQ)
+        io.call_soon(Exchange(io, self.peers[peer], frame, timeout,
+                              fut).start)
+        return fut
 
     def forward_submit(self, peer: int, group: int, payload: bytes,
                        timeout: float = 30.0
@@ -497,11 +545,28 @@ class TcpTransport:
 
     def _serve_forward(self, conn: socket.socket, body: bytes,
                        read: bool = False):
+        """Start serving one forward and own ``conn`` from here: the
+        reply goes out, and ``conn`` closes, on the transport's reactor
+        once the handler's future is done or ``timeout_s`` has passed
+        (transport/forward_io.py Reply).  The reply is the one
+        ``codec.serve_forward`` gives for that handler and future."""
+        from concurrent.futures import Future
+
+        from .forward_io import Reply, reactor_of
         group, timeout_s, payload = codec.unpack_fwd_req(body)
         handler = self.read_handler if read else self.submit_handler
-        ok, res = codec.serve_forward(handler, group, payload,
-                                      timeout_s, self.result_encoder)
-        conn.sendall(codec.pack_fwd_resp(ok, res))
+        fut = Future()
+        if handler is None:
+            fut.set_result(None)
+        else:
+            try:
+                fut = handler(group, payload)
+            except Exception as e:   # formatted as serve_forward does
+                fut.set_exception(e)
+        Reply(reactor_of(self, f"raft-fwd-io-{self.node_id}"), conn, fut,
+              timeout_s, lambda: codec.pack_fwd_resp(*codec.serve_forward(
+                  handler and (lambda g, p: fut), group, payload, 0.0,
+                  self.result_encoder)))
 
     def _serve_snapshot(self, conn: socket.socket, body: bytes):
         """Serve our snapshot file zero-copy (reference DefaultFileRegion

@@ -8,9 +8,11 @@
   Administrator's table and the commands of every machine file, in order,
   are equal, and each run's ``execute`` results are strictly increasing
   and name its own file's lines.  The results and the files are equal
-  byte for byte when neither run changed leader while the script ran:
-  apply indices count election no-ops, so a leader that a loaded host
-  deschedules past its election timeout shifts them in one run only.
+  byte for byte, on a pair of runs in which neither changed leader while
+  the script ran: apply indices count election no-ops, so a leader that a
+  loaded host deschedules past its election timeout shifts them in one
+  run only.  Such a pair is run again, up to three pairs, and one must be
+  calm.
 * The TCP scenarios of ``tests/test_api.py`` and ``tests/test_admin.py``
   on the port (``tests/test_torch_system.py`` holds the data-dir
   interchange, the system procedure and ``noderun``).
@@ -190,36 +192,44 @@ def _container_script(make, cfgs) -> dict:
 
 
 def test_container_parity_with_jax(tmp_path):
-    with pinned_env():
-        got = {pkg: _container_script(make, _configs(Config,
-                                                     tmp_path / pkg, seed=5))
-               for pkg, (Config, make) in PACKAGES.items()}
-    want, port = got["jax"], got["port"]
-    assert port["lanes"] == want["lanes"] == [1, 2, 3, 2]
-    assert port["table"] == want["table"]
-    assert want["table"]["b"][0] == "DESTROYED"
-    assert sorted(port["files"]) == sorted(want["files"]) == \
-        ["group_1.txt", "group_2.txt"]
-    script = [f"x-{k}" for k in range(20)] + [f"y-{k}" for k in range(10)]
-    for run in (want, port):
-        res = run["results"]
-        assert all(a < b for a, b in zip(res, res[1:])), res
-        cmds = [ln.split(":", 1)
-                for ln in _command_lines(run["files"]["group_1.txt"])]
-        assert [p for _, p in cmds] == script
-        assert [int(i) for i, _ in cmds] == res
-        assert _command_lines(run["files"]["group_2.txt"]) == []
-    # Byte equality where no leader changed while the script ran in
-    # either run (the same terms throughout, and the same no-ops, all of
-    # them before the first command).
-    calm = all(t[0] == t[-1] for run in (want, port)
-               for t in run["terms"].values())
-    noops = {pkg: {n: _noop_count(b) for n, b in run["files"].items()}
-             for pkg, run in got.items()}
-    if calm and noops["jax"] == noops["port"]:
-        assert port["results"] == want["results"]
-        for name in want["files"]:
-            assert port["files"][name] == want["files"][name], name
+    """The two packages' runs agree in structure on every attempt, and byte
+    for byte on a calm pair: no leader changed while the script ran in
+    either run, and the election no-ops agree.  A pair that was not calm
+    (a loaded host descheduled a leader past its election timeout) is run
+    again, up to three pairs; one must be calm, so a divergence cannot
+    pass as a changed no-op count."""
+    for attempt in range(3):
+        with pinned_env():
+            got = {pkg: _container_script(
+                make, _configs(Config, tmp_path / f"{pkg}{attempt}", seed=5))
+                for pkg, (Config, make) in PACKAGES.items()}
+        want, port = got["jax"], got["port"]
+        assert port["lanes"] == want["lanes"] == [1, 2, 3, 2]
+        assert port["table"] == want["table"]
+        assert want["table"]["b"][0] == "DESTROYED"
+        assert sorted(port["files"]) == sorted(want["files"]) == \
+            ["group_1.txt", "group_2.txt"]
+        script = [f"x-{k}" for k in range(20)] + [f"y-{k}" for k in range(10)]
+        for run in (want, port):
+            res = run["results"]
+            assert all(a < b for a, b in zip(res, res[1:])), res
+            cmds = [ln.split(":", 1)
+                    for ln in _command_lines(run["files"]["group_1.txt"])]
+            assert [p for _, p in cmds] == script
+            assert [int(i) for i, _ in cmds] == res
+            assert _command_lines(run["files"]["group_2.txt"]) == []
+        terms = {pkg: run["terms"] for pkg, run in got.items()}
+        noops = {pkg: {n: _noop_count(b) for n, b in run["files"].items()}
+                 for pkg, run in got.items()}
+        calm = all(t[0] == t[-1] for run in terms.values()
+                   for t in run.values()) and noops["jax"] == noops["port"]
+        if calm:
+            break
+    assert calm, (f"no calm pair in three attempts: terms at the script's "
+                  f"start and end {terms}, election no-ops {noops}")
+    assert port["results"] == want["results"]
+    for name in want["files"]:
+        assert port["files"][name] == want["files"][name], name
 
 
 # --------------------------------------- the scenarios of test_api.py --

@@ -8,7 +8,9 @@
   byte-equal and every node's WAL exports the same state.
 * The scenarios of ``tests/test_node_runtime.py`` on the port.
 * One linearizable read through ``RaftNode.read``, port against JAX, and
-  one behind a standing inbox backlog (served by the port only).
+  one behind a standing inbox backlog (served by the port only); the
+  pipelined late shed beside the in-flight offer (the reference asserts,
+  the port keeps the offer queued).
 * WAL interchange: a WAL written by one package restores lane for lane
   the same in the other (a group with a gap takes the slow-scan branch).
 * Guards: the copied modules stay byte-equal to the reference, the
@@ -332,6 +334,53 @@ def test_read_survives_standing_inbox_backlog(tmp_path, monkeypatch, pkg):
         lc.close()
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_pipelined_late_shed_keeps_the_inflight_offer(tmp_path, monkeypatch,
+                                                      pkg):
+    """Pipelined, the step in flight was offered entries from the
+    submission queue; admission's late shed (a 1 ms delay target, so
+    every queued batch is past its age cap) expires untouched batches.
+    The reference expires the in-flight offer too, and the next fetch
+    finds the device ahead of the queue.  The port's queue keeps at
+    least the in-flight offer.  256 groups, 8 x 64 B per led group per
+    round, as bench_runtime.py offers."""
+    for k, v in dict(RAFT_PIPELINE="1", RAFT_ADMISSION="1",
+                     RAFT_ADMISSION_TARGET_MS="1",
+                     RAFT_ADMISSION_TARGET_TICKS="0").items():
+        monkeypatch.setenv(k, v)
+    from rafting_tpu_torch import LEADER
+    from rafting_tpu_torch.testkit.fixtures import NullProvider
+    kw = dict(CFG_KW, n_groups=256, log_slots=64, batch=32, max_submit=32)
+    if pkg == "jax":
+        lc = JaxLocalCluster(JaxEngineConfig(**kw), str(tmp_path),
+                             provider_factory=NullProvider, seed=0,
+                             pipeline=True)
+    else:
+        lc = _cluster(tmp_path, EngineConfig(**kw),
+                      provider_factory=NullProvider, seed=0, pipeline=True)
+    burst = [b"x" * 64] * 8
+
+    def rounds(n):
+        for _ in range(n):
+            for node in lc.nodes.values():
+                led = (node.h_role == LEADER) & node.h_ready
+                node.submit_batch_many(np.nonzero(led)[0], burst)
+            for node in lc.nodes.values():
+                node.tick()
+    try:
+        lc.wait_leader(0, max_rounds=300)
+        if pkg == "jax":
+            with pytest.raises(AssertionError,
+                               match="beyond the queued depth"):
+                rounds(40)
+        else:
+            rounds(40)
+            assert sum(n.admission.expired for n in lc.nodes.values()) > 0
+            assert min(int(n.h_commit.sum()) for n in lc.nodes.values()) > 0
+    finally:
+        lc.close()
+
+
 # ---------------------------------------------------------- WAL interchange --
 
 def _write_wal(kind, root):
@@ -407,7 +456,7 @@ COPIES = [
     "utils/metrics.py", "utils/latency.py", "utils/health.py",
     "utils/heat.py", "api/anomaly.py", "api/serial.py",
     "transport/__init__.py", "transport/faults.py", "transport/inbox.py",
-    "transport/loopback.py", "transport/tcp.py", "machine/spi.py",
+    "machine/spi.py",
     "machine/dispatch.py", "machine/file_machine.py", "log/wal.py",
     "log/native/wal.cpp", "snapshot/__init__.py", "snapshot/archive.py",
     "snapshot/policy.py", "runtime/__init__.py", "runtime/admission.py",
@@ -415,17 +464,30 @@ COPIES = [
     # The public API slice.
     "log/spi.py", "log/memstore.py", "log/__init__.py",
     "machine/kv_machine.py", "machine/__init__.py", "api/retry.py",
-    "api/stub.py", "api/config.py", "api/__init__.py",
+    "api/config.py", "api/__init__.py",
     "testkit/history.py", "testkit/linz.py", "testkit/logcheck.py",
     "admin/__init__.py", "admin/kv.py", "admin/administrator.py",
     "admin/rebalance.py", "tools/__init__.py",
     # The verification plane.
     "testkit/faultfs.py", "testkit/openloop.py",
 ]
-# Copies with named edits: the file outside these top-level functions
-# equals the reference.
+# Copies with named edits: the file outside these top-level functions and
+# classes ("name") and methods ("Class.method") equals the reference.  The
+# port's forwards hold no thread while they wait: a stub runs each as a
+# coroutine on its transport's reactor (transport/forward_io.py), which
+# also sends and serves the TCP transport's forwards, instead of a thread
+# per operation at each end; closing a transport closes its reactor.
 EDITED = {"utils/tracelog.py": ["trace_to_numpy"],
-          "transport/codec.py": ["messages_template"]}
+          "transport/codec.py": ["messages_template"],
+          "api/stub.py": ["RaftStub._forwarded"],
+          "transport/loopback.py": ["LoopbackTransport.close",
+                                    "LoopbackTransport.forward_async"],
+          "transport/tcp.py": ["TcpTransport.close",
+                               "TcpTransport._accept_loop",
+                               "TcpTransport._on_first_frame",
+                               "TcpTransport._read_loop",
+                               "TcpTransport.forward_async",
+                               "TcpTransport._serve_forward"]}
 
 
 def _read(pkg, rel):
@@ -433,10 +495,25 @@ def _read(pkg, rel):
         return f.read()
 
 
-def _cut(src: bytes, names) -> bytes:
+def _cut(src: bytes, names, added=False) -> bytes:
+    """``src`` without the named top-level functions and classes, and
+    methods named ``Class.method``, each up to the next line at its own
+    indentation or less.  A name missing from ``src`` fails, unless
+    ``added`` (the reference lacks what the port adds)."""
     for name in names:
-        m = re.search(rb"^def " + name.encode() + rb"\b.*?(?=^\S|\Z)", src,
-                      re.S | re.M)
+        cls, _, meth = name.rpartition(".")
+        if cls:
+            c = re.search(rb"^class " + cls.encode() + rb"\b.*?(?=^\S|\Z)",
+                          src, re.S | re.M)
+            assert c, cls
+            lo, hi = c.start(), c.end()
+            pat = rb"^    def " + meth.encode() + rb"\b.*?(?=^ {0,4}\S|\Z)"
+        else:
+            lo, hi = 0, len(src)
+            pat = rb"^(?:def|class) " + name.encode() + rb"\b.*?(?=^\S|\Z)"
+        m = re.compile(pat, re.S | re.M).search(src, lo, hi)
+        if m is None and added:
+            continue
         assert m, name
         src = src[:m.start()] + src[m.end():]
     return src
@@ -448,7 +525,7 @@ def test_copied_module_matches_reference(rel):
     names = EDITED.get(rel)
     if names:
         assert port != ref
-        port, ref = _cut(port, names), _cut(ref, names)
+        port, ref = _cut(port, names), _cut(ref, names, added=True)
     assert port == ref, f"rafting_tpu_torch/{rel} drifted from the reference"
 
 
