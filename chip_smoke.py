@@ -30,7 +30,17 @@ no result line):
              with no host synchronisation allowed, a 15-tick drain; one
              leader per group, commits > 0, converged commit indices, and
              exactly one kernel launch per tick.
-6. nemesis — BASELINE.json configs[3] at full width: 100k groups x 5
+6. bench   — the benchmark entry points in this process: the child of
+             rafting_tpu_torch/tools/bench.py at 100k groups x 3 nodes
+             with its default blocking (4 blocks of 25,000 groups through
+             run_cluster_ticks_blocked), 32 warm-up and 64 measured ticks,
+             the measured window under sync-debug "error": one leader per
+             group, commits, one kernel launch per block tick and none on
+             the strided path; its reads stage at the same shape (reads
+             served); bench_runtime.run at 1,024 groups x 3 RaftNodes for
+             5 rounds (commits, per-stage tick means).  Prints each JSON
+             line (~90 s).
+7. nemesis — BASELINE.json configs[3] at full width: 100k groups x 5
              nodes, all four optional flags on, offered load max_submit,
              a 50-tick healthy warm-up, chaos_mix(5, 150, seed=0), then a
              healthy settle, through
@@ -40,7 +50,7 @@ no result line):
              every tick.  At the end: log matching, one leader per group,
              commits in every group, a CheckQuorum step-down inside the
              split-brain window, one kernel launch per tick.
-7. runtime-parity — the node runtime (RaftNode + WAL + loopback +
+8. runtime-parity — the node runtime (RaftNode + WAL + loopback +
              LocalCluster, FileMachine per group) on CUDA against the same
              on the CPU: 64 groups x 3 nodes in lockstep through the
              scripted scenario of testkit/lockstep.py (elect, submit
@@ -48,17 +58,17 @@ no result line):
              submit, restart it from its WAL, drain), with the durable
              pipeline off and then on.  h_role/h_term/h_commit/h_leader
              of every node equal at every round; machine files byte-equal.
-8. runtime — BASELINE.json configs[2] (10k groups, PreVote, randomized
+9. runtime — BASELINE.json configs[2] (10k groups, PreVote, randomized
              leader churn) through three RaftNodes on the card over
              loopback, pipelined, NullProvider, bench_runtime.py's offered
              load (8 x 64-byte payloads per led, ready group per round via
-             submit_batch_many): settle, 5 warm-up + 25 measured rounds,
+             submit_batch_many): settle, 5 warm-up + 10 measured rounds,
              kill the node leading the most groups, re-elect, restart it
              from its WAL, drain.  One leader per group, converged
              commits, payload agreement and every acknowledged submission
              read back on 512 seeded groups, one kernel launch per node
              tick.
-9. api-testnode — BASELINE.json configs[0], the reference's TestNode1-3
+10. api-testnode — BASELINE.json configs[0], the reference's TestNode1-3
              procedure: three `python -m rafting_tpu_torch.tools.noderun`
              processes on the card (XML defaults, three free localhost
              ports), each executing through its own stub every 10 ms; 20 s
@@ -68,7 +78,7 @@ no result line):
              to trailing election no-ops, testkit.logcheck finds no
              divergence, the survivors exit 0, and every process held the
              card.
-10. api-1k — BASELINE.json configs[1]: 1,000 groups through three
+11. api-1k — BASELINE.json configs[1]: 1,000 groups through three
              RaftContainers in this process over localhost TCP, the KV
              machine, PreVote off; waves of two sets and one linearizable
              get per group through the stub on container g mod 3, each
@@ -81,7 +91,7 @@ no result line):
              acknowledged set reads back on all three nodes,
              linz.check passes on 64 sampled groups, no snapshot is taken,
              and every node tick launched the kernel once.
-11. oracle  — the port's node_step on the card against the scalar oracle
+12. oracle  — the port's node_step on the card against the scalar oracle
              (testkit/oracle.py) on the host, every state lane, outbound
              message and step-info field at every step, under seeded
              drops, partitions, crash-restarts, clock stalls and
@@ -90,12 +100,12 @@ no result line):
              recorder, heat lanes, CheckQuorum and debug checks.  One
              kernel launch per node_step call; elections, commits,
              crash-restarts and partitions all happened.
-12. snapshot — BASELINE.json configs[4] as tools/validate_config5.py
+13. snapshot — BASELINE.json configs[4] as tools/validate_config5.py
              drives it: 100k groups x 3 nodes with debug checks, node 2
              isolated while the majority compacts past its tail in every
              group, healed; every group caught up by a floor jump, no
              need_snap on a live leader, one launch per tick.
-13. chaos   — rafting_tpu_torch/tools/chaos_run.py on the card, at the
+14. chaos   — rafting_tpu_torch/tools/chaos_run.py on the card, at the
              settings of the JAX package's committed CPU artifacts (the
              isolate and transfer soaks shortened, CHAOS_ISOLATE_ARGS and
              CHAOS_TRANSFER_TICKS; the serial runtime): the
@@ -106,16 +116,18 @@ no result line):
              step-down recorded) and one round of the bank transfer soak
              (check_transfer_atomicity); acknowledged writes and reads by
              every client, committed transfers, one launch per node tick.
-``--profile`` runs probe, build and kernel, then 8 headline ticks and 8
-nemesis ticks inside the split-brain window under torch.profiler (the top
-kernels by device time, the device-busy share, and the kernels next to
-each headline qc_kernel, where no copy kernel may be), and stops without
-the result line.
+``--profile`` runs probe, build and kernel, then 8 headline ticks, 32
+blocked bench ticks (4 x 25,000 groups, 4 a call) and 8 nemesis ticks
+inside the split-brain window under torch.profiler (the top kernels by
+device time, the device-busy share, and the kernels next to each
+headline qc_kernel, where no copy kernel may be), and stops without the
+result line.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; before it, one JSON line lists each kernel with its launches
-on the path that launched it (the quorum kernel seven times: P=3 on the
-headline path, P=5 on the nemesis path, P=3 at N=1 per node tick on the
+on the path that launched it (the quorum kernel eight times: P=3 on the
+headline path, P=3 per block of 25,000 groups on the bench path, P=5 on
+the nemesis path, P=3 at N=1 per node tick on the
 runtime, api-1k and chaos paths, at N=1 per node_step on the oracle path,
 and P=3 on the snapshot path), its error against the plain version, its
 time, the plain version's time and its bound, its device time per launch
@@ -586,6 +598,79 @@ def phase_main() -> dict:
         f"quorum_commit {launches} launches, {_kernel_line(kern)}; "
         f"peak memory {peak / 2**30:.3f} GiB; "
         f"leaders {int(n_lead.sum())}, commit min {int(snap['commit'].min())}")
+    return kern
+
+
+# [bench]: the benchmark entry points (rafting_tpu_torch/tools/bench.py and
+# bench_runtime.py) in this process, at bench.py's 100k headline shape with
+# its default blocking, shortened to BENCH_TICKS.
+BENCH_GROUPS = 100_000
+BENCH_BLOCKS = (4, 25_000)       # bench.py's rule above 32,768 groups
+BENCH_TICKS = (32, 64)           # warm-up, measured
+BENCH_RT_GROUPS = 1024
+
+
+def phase_bench() -> dict:
+    from rafting_tpu_torch.ops import quorum
+    from rafting_tpu_torch.tools import bench, bench_runtime
+
+    G, (warm, T) = BENCH_GROUPS, BENCH_TICKS
+    # (a) The ladder's child at 100k: every tick of it runs the blocked
+    # loop, and its measured window runs under sync-debug "error".
+    quorum.reset_launch_counts()
+    res = bench.child_run(G, T, warm)
+    launches = _launches("bench")
+    blocks = (res["n_blocks"], res["group_block"])
+    if blocks != BENCH_BLOCKS:
+        raise AssertionError(f"[bench] {G} groups ran as {blocks} (blocks, "
+                             f"groups a block), want {BENCH_BLOCKS}")
+    if launches != (warm + T) * blocks[0]:
+        raise AssertionError(f"[bench] quorum kernel launched {launches} "
+                             f"times in {warm + T} ticks x {blocks[0]} "
+                             f"blocks (want one per block tick)")
+    kern = _kernel_entry("quorum_commit[bench]", launches)
+    log(f"[bench] {json.dumps(res)}")
+    log(f"[bench] {json.dumps(bench.headline(res))}")
+    log(f"[bench] child {G} groups in {blocks[0]} blocks of {blocks[1]}: "
+        f"{res['commits']} commits in {T} ticks, one leader per group, "
+        f"{res['elapsed_s'] / T * 1e3:.3f} ms/tick; quorum_commit "
+        f"{launches} launches ({warm + T} ticks x {blocks[0]} blocks), "
+        f"{_kernel_line(kern)}")
+
+    # (b) The reads stage at the same shape: a blocked warm-up, then the
+    # unblocked reads loop (as bench.py runs it).
+    os.environ["BENCH_READS"] = "1"
+    try:
+        quorum.reset_launch_counts()
+        rd = bench.child_run(G, T, warm)
+    finally:
+        del os.environ["BENCH_READS"]
+    rd_launches = _launches("bench-reads")
+    chunk = max(16, 128 // blocks[0])
+    warm_steps = sorted({min(chunk, T - d) for d in range(0, T, chunk)})
+    want = warm * blocks[0] + sum(warm_steps) + T
+    if rd_launches != want or not rd["reads"] > 0:
+        raise AssertionError(f"[bench] reads stage: {rd['reads']} reads "
+                             f"served, {rd_launches} launches (want > 0 "
+                             f"reads and {want} launches)")
+    log(f"[bench] {json.dumps(bench.headline_reads(rd))}")
+    log(f"[bench] reads: {rd['reads']} served ({rd['lease_hits']} lease "
+        f"hits, {rd['appended']} entries appended) in {T} ticks, "
+        f"{rd['rps']:.0f} reads/s; quorum_commit {rd_launches} launches")
+
+    # (c) The durable runtime through bench_runtime.run on the card.
+    quorum.reset_launch_counts()
+    rt = bench_runtime.run(n_groups=BENCH_RT_GROUPS, rounds=5,
+                           device="cuda")
+    rt_launches = _launches("bench-runtime")
+    if not rt["value"] > 0 or rt_launches == 0:
+        raise AssertionError(f"[bench] bench_runtime: {rt['value']} "
+                             f"commits/s, {rt_launches} kernel launches")
+    log(f"[bench] {json.dumps(rt)}")
+    log(f"[bench] bench_runtime {BENCH_RT_GROUPS} groups x 3 RaftNodes "
+        f"(pipeline {rt['pipeline']}): {rt['value']} durable commits/s; "
+        f"slowest node's stage means (s) {rt['tick_stages_mean_s']}; "
+        f"quorum_commit {rt_launches} launches")
     return kern
 
 
@@ -1912,19 +1997,21 @@ def phase_chaos() -> dict:
     return kern
 
 
-def _profile(label: str, tick, neighbours: bool = False) -> None:
-    """8 ticks of ``tick()`` under torch.profiler: the top kernels by
-    device time and the device-busy share of the wall time; with
-    ``neighbours``, the kernels next to each qc_kernel.  Only the first
-    profiler session of a process records kernels on the H100 machine
-    (PERF.md §6), so that check goes with the first call."""
+def _profile(label: str, tick, neighbours: bool = False,
+             per_call: int = 1) -> None:
+    """8 ticks of ``tick()`` (8 calls of ``per_call`` ticks each) under
+    torch.profiler: the top kernels by device time and the device-busy
+    share of the wall time, per tick; with ``neighbours``, the kernels
+    next to each qc_kernel.  Only the first profiler session of a process
+    records kernels on the H100 machine (PERF.md §6), so that check goes
+    with the first call."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    T = 8
+    T = 8 * per_call
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(T):
+        for _ in range(8):
             tick()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1967,10 +2054,12 @@ def _profile(label: str, tick, neighbours: bool = False) -> None:
 
 def phase_profile() -> None:
     """``--profile`` only: where a tick's device time goes on each path —
-    8 steady headline ticks, then 8 nemesis ticks inside the split-brain
-    window (all four optional subtrees on)."""
+    8 steady headline ticks, 32 ticks of the bench ladder's blocked 100k
+    point, then 8 nemesis ticks inside the split-brain window (all four
+    optional subtrees on)."""
     from rafting_tpu_torch import (
-        DeviceCluster, EngineConfig, run_cluster_ticks_nemesis,
+        DeviceCluster, EngineConfig, run_cluster_ticks_blocked,
+        run_cluster_ticks_nemesis,
     )
     from rafting_tpu_torch.core.types import tree_map
     from rafting_tpu_torch.testkit import nemesis
@@ -1980,6 +2069,22 @@ def phase_profile() -> None:
         c.tick(submit_n=cfg.max_submit)
     _profile("headline", lambda: c.tick(submit_n=cfg.max_submit),
              neighbours=True)
+
+    # The bench ladder's 100k point, from the same state: 4 blocks of
+    # 25,000 groups through run_cluster_ticks_blocked, 4 ticks a call
+    # (the ladder's calls are 32 ticks; each call splits and merges the
+    # state once).
+    load = torch.full((cfg.n_peers, cfg.n_groups), cfg.max_submit,
+                      dtype=torch.int32, device="cuda")
+
+    def blocked_ticks():
+        c.states, c.inflight, c.last_info = run_cluster_ticks_blocked(
+            cfg, 4, c.states, c.inflight, c.last_info, c.conn, load,
+            BENCH_BLOCKS[1], device="cuda")
+
+    for _ in range(2):
+        blocked_ticks()
+    _profile("bench-blocked", blocked_ticks, per_call=4)
     del c
 
     cfg = nemesis_cfg()
@@ -2025,7 +2130,8 @@ def main() -> int:
     for phase in (phase_build, phase_kernel, phase_parity,
                   phase_parity_nemesis):
         _timed(phase)
-    kernels = [_timed(phase_main), _timed(phase_nemesis)]
+    kernels = [_timed(phase_main), _timed(phase_bench),
+               _timed(phase_nemesis)]
     _timed(phase_runtime_parity)
     kernels.append(_timed(phase_runtime))
     _release_host_memory()

@@ -20,8 +20,8 @@ from .core.cluster import (
     DeviceCluster, auto_host_inbox, cluster_step, cluster_step_nemesis, route,
 )
 from .core.sim import (
-    committed_entries, run_cluster_ticks, run_cluster_ticks_nemesis,
-    run_cluster_ticks_reads,
+    committed_entries, run_cluster_ticks, run_cluster_ticks_blocked,
+    run_cluster_ticks_nemesis, run_cluster_ticks_reads,
 )
 from .core.step import DEBUG_CODES, node_step, raise_debug_violations
 from .core.types import (
@@ -50,5 +50,6 @@ __all__ = [
     "TraceState", "auto_host_inbox", "cluster_step", "cluster_step_nemesis",
     "committed_entries", "crash_restart", "init_state", "node_step",
     "raise_debug_violations", "route", "run_cluster_ticks",
-    "run_cluster_ticks_nemesis", "run_cluster_ticks_reads",
+    "run_cluster_ticks_blocked", "run_cluster_ticks_nemesis",
+    "run_cluster_ticks_reads",
 ]

@@ -5,15 +5,23 @@ a ``lax.scan`` over whole-cluster steps, the port runs a plain Python tick
 loop: each tick builds the self-driving host inbox and steps the cluster.
 Neither makes a host synchronisation, so the loop only enqueues work on
 the card (and can later be captured as a CUDA graph).
+
+``run_cluster_ticks_blocked`` tiles the group axis: groups never interact,
+so blocks of ``group_block`` groups each run the whole tick loop, one
+block after another (as ``lax.map`` runs them in the JAX engine), lane
+for lane the JAX function's result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 
+from . import prng
 from .cluster import auto_host_inbox, cluster_step, cluster_step_nemesis
+from .shard import SUBMIT_PSPEC, info_pspecs, messages_pspecs, state_pspecs
 from .types import (
     EngineConfig, FaultSchedule, Messages, RaftState, StepInfo,
     resolve_device, tree_map,
@@ -27,6 +35,19 @@ def _on_device(states: RaftState, device) -> None:
                          f"the run asked for {dev}")
 
 
+def _scan_ticks(cfg: EngineConfig, n_ticks: int, states: RaftState,
+                inflight: Messages, prev_info: StepInfo, conn: torch.Tensor,
+                submit_n: torch.Tensor, read_n=None, durable_lag: bool = False
+                ) -> Tuple[RaftState, Messages, StepInfo]:
+    info = prev_info
+    for _ in range(n_ticks):
+        host = auto_host_inbox(cfg, states, submit_n, True, info, read_n,
+                               durable_lag)
+        states, inflight, info = cluster_step(cfg, states, inflight, host,
+                                              conn)
+    return states, inflight, info
+
+
 def run_cluster_ticks(cfg: EngineConfig, n_ticks: int, states: RaftState,
                       inflight: Messages, prev_info: StepInfo,
                       conn: torch.Tensor, submit_n: torch.Tensor,
@@ -37,13 +58,8 @@ def run_cluster_ticks(cfg: EngineConfig, n_ticks: int, states: RaftState,
     unless ``device`` says otherwise; the state must already live there.
     Returns the final ``(states, inflight, info)``."""
     _on_device(states, device)
-    info = prev_info
-    for _ in range(n_ticks):
-        host = auto_host_inbox(cfg, states, submit_n, True, info, read_n,
-                               durable_lag)
-        states, inflight, info = cluster_step(cfg, states, inflight, host,
-                                              conn)
-    return states, inflight, info
+    return _scan_ticks(cfg, n_ticks, states, inflight, prev_info, conn,
+                       submit_n, read_n, durable_lag)
 
 
 def run_cluster_ticks_reads(cfg: EngineConfig, n_ticks: int,
@@ -98,6 +114,98 @@ def run_cluster_ticks_nemesis(cfg: EngineConfig, states: RaftState,
         states, inflight, info = cluster_step_nemesis(
             cfg, states, inflight, host, info, fault)
     return states, inflight, info
+
+
+def _group_axis(spec) -> int | None:
+    return spec.index("group") if "group" in spec else None
+
+
+def _to_blocks(tree, specs, nb: int, gb: int):
+    """Split every group axis into [nb, gb] and move the block axis front.
+    Leaves without a group axis are broadcast (shared by every block)."""
+    def f(a, spec):
+        ax = _group_axis(spec)
+        if ax is None:
+            return a.expand((nb,) + a.shape)
+        pad = nb * gb - a.shape[ax]
+        if pad:
+            # Zero pad == inactive lanes (active=False).
+            shape = list(a.shape)
+            shape[ax] = pad
+            a = torch.cat([a, a.new_zeros(shape)], dim=ax)
+        a = a.reshape(a.shape[:ax] + (nb, gb) + a.shape[ax + 1:])
+        return a.movedim(ax, 0)
+    return tree_map(f, tree, specs)
+
+
+def _from_blocks(tree, specs, G: int):
+    """Invert ``_to_blocks``: merge [nb, gb] back into the group axis and
+    strip padding.  Block-invariant leaves take block 0's value."""
+    def f(a, spec):
+        ax = _group_axis(spec)
+        if ax is None:
+            return a[0]
+        a = a.movedim(0, ax)
+        a = a.reshape(a.shape[:ax] + (-1,) + a.shape[ax + 2:])
+        return a.narrow(ax, 0, G).contiguous()
+    return tree_map(f, tree, specs)
+
+
+def run_cluster_ticks_blocked(cfg: EngineConfig, n_ticks: int,
+                              states: RaftState, inflight: Messages,
+                              prev_info: StepInfo, conn: torch.Tensor,
+                              submit_n: torch.Tensor, group_block: int,
+                              device=None
+                              ) -> Tuple[RaftState, Messages, StepInfo]:
+    """``run_cluster_ticks``, tiled over the group axis.
+
+    With ``group_block >= G`` this is the plain loop.  Otherwise the
+    groups are padded with inert lanes (zero means ``active=False``: a
+    padded lane never elects, accepts or sends) up to ``nb`` blocks of
+    ``group_block``, and each block runs the whole ``n_ticks`` loop as a
+    cluster of ``group_block`` groups, one block after another, with no
+    host synchronisation.  Block b's per-node PRNG keys are the node keys
+    folded with b, so election jitter stays decorrelated across blocks:
+    the result is not the unblocked run's, but it is the JAX engine's
+    blocked run lane for lane.  Leaves with no group axis (``rng``,
+    ``now``, ``node_id``) come back as block 0's.  Runs on the card
+    unless ``device`` says otherwise; the state must already live there.
+    """
+    _on_device(states, device)
+    G = cfg.n_groups
+    if group_block >= G:
+        return _scan_ticks(cfg, n_ticks, states, inflight, prev_info, conn,
+                           submit_n)
+    nb = -(-G // group_block)
+    gb = group_block
+    cfg_blk = dataclasses.replace(cfg, n_groups=gb)
+
+    st_specs, msg_specs, inf_specs = (
+        state_pspecs(trace=states.trace is not None,
+                     heat=states.heat is not None,
+                     qc=states.qc is not None), messages_pspecs(),
+        info_pspecs(qc=prev_info.cq_stepdown is not None))
+    states_b = _to_blocks(states, st_specs, nb, gb)
+    inflight_b = _to_blocks(inflight, msg_specs, nb, gb)
+    info_b = _to_blocks(prev_info, inf_specs, nb, gb)
+    submit_b = _to_blocks(submit_n, SUBMIT_PSPEC, nb, gb)
+    # Decorrelate the per-node keys across blocks: fold_in(node key, b).
+    states_b = states_b.replace(rng=torch.stack(
+        [prng.fold_in(states.rng, b) for b in range(nb)]))
+
+    outs = []
+    for b in range(nb):
+        pick = lambda a: a[b]
+        outs.append(_scan_ticks(
+            cfg_blk, n_ticks, tree_map(pick, states_b),
+            tree_map(pick, inflight_b), tree_map(pick, info_b), conn,
+            submit_b[b]))
+    stack = lambda *xs: torch.stack(xs)
+    states_o, inflight_o, info_o = (tree_map(stack, *parts)
+                                    for parts in zip(*outs))
+    return (_from_blocks(states_o, st_specs, G),
+            _from_blocks(inflight_o, msg_specs, G),
+            _from_blocks(info_o, inf_specs, G))
 
 
 def committed_entries(states: RaftState) -> torch.Tensor:
