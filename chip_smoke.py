@@ -116,6 +116,26 @@ no result line):
              step-down recorded) and one round of the bank transfer soak
              (check_transfer_atomicity); acknowledged writes and reads by
              every client, committed transfers, one launch per node tick.
+15. config4 — BASELINE.json configs[3]'s partition scenario through
+             rafting_tpu_torch/tools/validate_config4.py's run_config4 at
+             100k groups x 5 nodes with debug checks (seed 4): 60 ticks
+             under load, one leader per group; the minority {3, 4} cut
+             off for up to six windows of 30 ticks (the share of groups
+             that progressed on the majority side, beside the reference
+             TPU run's 95.7% at 30 and 100% by 120); healed, 75 ticks;
+             progress in every group, split brain checked every tick,
+             one launch per tick.
+16. shard   — the cluster sharded over torch.distributed through
+             rafting_tpu_torch/tools/dryrun_multichip.py at 32,768
+             groups x 4 nodes, 64 ticks: world 1 over NCCL (mesh 1 x 1,
+             in this process) and world 4 over gloo on this card (mesh
+             2 node x 2 group, four spawned ranks, collectives staged
+             through the host).  Each gathered result equals the
+             unsharded run on the card on every lane (the unsharded
+             tick loop timed alone, as each rank times its own); every
+             rank launched the kernel once a tick, never on its strided
+             path, and held it against its plain version on its last
+             launch's operands.
 ``--profile`` runs probe, build and kernel, then 8 headline ticks, 32
 blocked bench ticks (4 x 25,000 groups, 4 a call) and 8 nemesis ticks
 inside the split-brain window under torch.profiler (the top kernels by
@@ -125,11 +145,13 @@ result line.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; before it, one JSON line lists each kernel with its launches
-on the path that launched it (the quorum kernel eight times: P=3 on the
+on the path that launched it (the quorum kernel eleven times: P=3 on the
 headline path, P=3 per block of 25,000 groups on the bench path, P=5 on
 the nemesis path, P=3 at N=1 per node tick on the
 runtime, api-1k and chaos paths, at N=1 per node_step on the oracle path,
-and P=3 on the snapshot path), its error against the plain version, its
+P=3 on the snapshot path, P=5 on the config4 path, and P=4 on the shard
+path: world 1's [4, 32768, 4] and, from rank 0 of world 4, each rank's
+[2, 16384, 4]), its error against the plain version, its
 time, the plain version's time and its bound, its device time per launch
 (CUDA events, inputs cold in L2), that time's share of the bound, and the
 first design's device time on the same inputs.  The
@@ -1997,6 +2019,120 @@ def phase_chaos() -> dict:
     return kern
 
 
+# [config4]: BASELINE.json configs[3]'s partition scenario through the
+# port's twin of tools/validate_config4.py, at full size on the card.
+CONFIG4_GROUPS = 100_000
+
+
+def phase_config4() -> dict:
+    from rafting_tpu_torch.ops import quorum
+    from rafting_tpu_torch.tools.validate_config4 import run_config4
+
+    t_phase = time.perf_counter()
+    quorum.reset_launch_counts()
+    plog, c = run_config4(CONFIG4_GROUPS, "cuda")
+    launches = _launches("config4")
+    windows = [p for p in plog.phases if p["phase"] == "partitioned"]
+    ticks = 60 + 30 * len(windows) + 75
+    if launches != ticks:
+        raise AssertionError(f"[config4] quorum kernel launched {launches} "
+                             f"times in {ticks} ticks (want one per tick)")
+    kern = _kernel_entry("quorum_commit[config4]", launches)
+    elect, healed = plog.phases[0], plog.phases[-1]
+    pct = ", ".join(f"{p['ticks']}: {p['progressed_pct']}% "
+                    f"({p['ms_per_tick']:.3f} ms/tick)" for p in windows)
+    log(f"[config4] BASELINE configs[3]: {CONFIG4_GROUPS} groups x 5 nodes, "
+        f"debug checks on, seed 4: elect+replicate {elect['elapsed_s']:.3f}"
+        f"s ({elect['ms_per_tick']:.3f} ms/tick, {elect['committed']} "
+        f"committed); partition {{0,1,2}} | {{3,4}}, majority-side groups "
+        f"progressed after partitioned ticks {pct}; healed: "
+        f"{healed['commits_after_heal']} commits after the heal, "
+        f"{healed['committed']} in all "
+        f"({healed['ms_per_tick']:.3f} ms/tick), no same-term split brain "
+        f"at any tick; {time.perf_counter() - t_phase:.1f}s; quorum_commit "
+        f"{launches} launches, {_kernel_line(kern)}")
+    del c
+    return kern
+
+
+# [shard]: the cluster sharded over torch.distributed through the twin of
+# __graft_entry__.dryrun_multichip, at 32,768 groups x 4 nodes for 64
+# ticks: world 1 over NCCL (mesh 1 x 1, in this process) and world 4 over
+# gloo on this one card (mesh 2 node x 2 group, four spawned ranks, every
+# collective staged through host tensors).  Each gathered result must be
+# the unsharded run's on the card, lane for lane.  One card proves the
+# sharded path right; no multi-GPU rate comes from it.
+SHARD_GROUPS, SHARD_NODES = 32_768, 4
+
+
+def _same_tree(want, got, path: str) -> None:
+    if isinstance(want, dict):
+        for k in want:
+            _same_tree(want[k], got[k], f"{path}.{k}")
+        return
+    if want is None:
+        if got is not None:
+            raise AssertionError(f"{path}: None against a tensor")
+        return
+    if want.shape != got.shape or want.dtype != got.dtype \
+            or not np.array_equal(want, got):
+        raise AssertionError(f"{path}: sharded != unsharded")
+
+
+def phase_shard() -> list:
+    from rafting_tpu_torch.bridge import state_to_numpy
+    from rafting_tpu_torch.core.sim import run_cluster_ticks
+    from rafting_tpu_torch.tools import dryrun_multichip as dm
+
+    t_phase = time.perf_counter()
+    job = dm.dryrun_job((1, 1), SHARD_NODES, SHARD_GROUPS)
+    T = job["ticks"]
+    cfg, full = dm.full_cluster(job, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_cluster_ticks(cfg, T, *full, device="cuda")
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) / T * 1e3
+    want = [state_to_numpy(t) for t in out]
+    del full, out
+    runs, kerns = {}, []
+    for world, backend, mesh, name in (
+            (1, "nccl", (1, 1), "quorum_commit[shard]"),
+            (4, "gloo", (2, 2), "quorum_commit[shard-w4]")):
+        res = dm.dryrun(world, backend, "cuda", mesh, SHARD_NODES,
+                        SHARD_GROUPS)
+        r0 = res["ranks"][0]
+        for k, part in enumerate(("state", "inflight", "info")):
+            _same_tree(want[k], r0[part], f"[shard] world {world} {part}")
+        for r in res["ranks"]:
+            if r["launches"] != T or r["strided"]:
+                raise AssertionError(
+                    f"[shard] world {world} rank {r['rank']}: "
+                    f"{r['launches']} launches ({r['strided']} strided) in "
+                    f"{T} ticks (want one dense launch a tick)")
+        # Rank 0's last launch, dense as it ran (no strided launch), on
+        # this card; the ranks counted their own launches around the run.
+        _TICK_OPERANDS[0] = tuple(torch.from_numpy(a).cuda()
+                                  for a in r0["operands"])
+        kerns.append(_kernel_entry(name, r0["launches"]))
+        runs[world] = res
+    desc = "; ".join(
+        f"world {w} over {r['backend']}, mesh ({r['mesh'][0]} node x "
+        f"{r['mesh'][1]} group), committed {r['committed']}, ranks "
+        + ", ".join(f"{x['coords']} local {x['local_term']} "
+                    f"{x['ms_per_tick']:.3f} ms/tick {x['launches']} "
+                    f"launches" for x in r["ranks"])
+        for w, r in runs.items())
+    log(f"[shard] {SHARD_GROUPS} groups x {SHARD_NODES} nodes, "
+        f"{T} ticks; unsharded on this card {ref_ms:.3f} ms/tick (the "
+        f"tick loop alone, as each rank times it); {desc}; both gathered "
+        f"runs equal the unsharded one on every lane; "
+        f"{time.perf_counter() - t_phase:.1f}s; "
+        + "; ".join(f"{k['name']} {k['launches']} launches per rank, "
+                    f"{_kernel_line(k)}" for k in kerns))
+    return kerns
+
+
 def _profile(label: str, tick, neighbours: bool = False,
              per_call: int = 1) -> None:
     """8 ticks of ``tick()`` (8 calls of ``per_call`` ticks each) under
@@ -2137,8 +2273,10 @@ def main() -> int:
     _release_host_memory()
     log(f"[mem] released: {_mem()}")
     _timed(phase_api_testnode)
-    for phase in (phase_api_1k, phase_oracle, phase_snapshot, phase_chaos):
+    for phase in (phase_api_1k, phase_oracle, phase_snapshot, phase_chaos,
+                  phase_config4):
         kernels.append(_timed(phase))
+    kernels += _timed(phase_shard)
     log(f"[time] whole script {time.perf_counter() - t0:.1f}s")
     for k in kernels:
         del k["bytes"]

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .shard import Mesh, exchange_messages
 from .step import node_step, raise_debug_violations
 from .types import (
     I32, LEADER, NIL, EngineConfig, FaultSchedule, HostInbox, Messages,
@@ -34,11 +35,24 @@ for _f in dataclasses.fields(Messages):
     _KIND_FIELDS.setdefault(_f.name.split("_", 1)[0], []).append(_f.name)
 
 
-def route(outboxes: Messages, conn: Optional[torch.Tensor] = None
-          ) -> Messages:
+def route(outboxes: Messages, conn: Optional[torch.Tensor] = None,
+          mesh: Optional[Mesh] = None) -> Messages:
     """Deliver every node's outbox as next tick's inboxes: ``[N(sender),
     P(dest), G, ...]`` -> ``[N(dest), P(sender), G, ...]``.  ``conn[s, d]``
-    masks link s->d (False = partitioned)."""
+    masks link s->d (False = partitioned).
+
+    On a ``mesh`` this rank holds sender rows ``[Nl, N, Gl]`` and
+    ``conn``'s rows ``[Nl, N]``: the links are masked on the sender's
+    side, then the node shards swap their blocks
+    (:func:`~rafting_tpu_torch.core.shard.exchange_messages`).  Masking
+    commutes with the swap, so the inboxes are the unsharded ones."""
+    if mesh is not None:
+        if conn is not None:
+            mask = conn.unsqueeze(-1)
+            outboxes = outboxes.replace(**{
+                name: getattr(outboxes, name) & mask
+                for name in _VALID_FIELDS})
+        return exchange_messages(mesh, outboxes)
     swapped = tree_map(lambda a: a.transpose(0, 1), outboxes)
     if conn is None:
         return swapped
@@ -49,12 +63,16 @@ def route(outboxes: Messages, conn: Optional[torch.Tensor] = None
 
 
 def cluster_step(cfg: EngineConfig, states: RaftState, inflight: Messages,
-                 host: HostInbox, conn: torch.Tensor
+                 host: HostInbox, conn: torch.Tensor,
+                 mesh: Optional[Mesh] = None
                  ) -> Tuple[RaftState, Messages, StepInfo]:
     """One lockstep tick of the whole cluster (leading node axis [N] on
     ``states``, ``host`` and the returned ``StepInfo``; ``inflight`` is the
-    traffic delivered this tick)."""
-    return node_step(cfg, states, route(inflight, conn), host)
+    traffic delivered this tick).  On a ``mesh``, one rank's slice:
+    ``cfg`` is the slice's (``Mesh.local_config``) and ``conn`` its
+    rows."""
+    base = 0 if mesh is None else mesh.group_base(cfg)
+    return node_step(cfg, states, route(inflight, conn, mesh), host, base)
 
 
 def _node_bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -71,7 +89,8 @@ def _select_nodes(mask: torch.Tensor, on_true, on_false):
 
 def cluster_step_nemesis(cfg: EngineConfig, states: RaftState,
                          inflight: Messages, host: HostInbox,
-                         prev_info: StepInfo, fault: FaultSchedule
+                         prev_info: StepInfo, fault: FaultSchedule,
+                         mesh: Optional[Mesh] = None
                          ) -> Tuple[RaftState, Messages, StepInfo]:
     """One lockstep tick under one tick of a fault schedule (``fault``
     holds ``link_up`` [N, N], ``crash`` [N], ``stall`` [N], ``dup`` [N,
@@ -86,14 +105,23 @@ def cluster_step_nemesis(cfg: EngineConfig, states: RaftState,
     4. messages delivered over a ``dup`` link are queued again for next
        tick, whole RPC, wherever the fresh outbox left that kind empty.
 
-    Every fault is a mask on the device: no host synchronisation."""
+    Every fault is a mask on the device: no host synchronisation.
+
+    On a ``mesh`` the state, messages and ``fault`` are one rank's slice
+    (``fault``'s sender rows): a sender needs every destination's
+    crash and stall, so the node shards all-gather them once a tick."""
     down = fault.crash | fault.stall                               # [N]
+    base, down_all = 0, down
+    if mesh is not None:
+        base = mesh.group_base(cfg)
+        down_all = torch.cat(mesh.all_gather(down, "node"))         # [N]
 
-    states = _select_nodes(fault.crash, crash_restart(cfg, states), states)
+    states = _select_nodes(fault.crash, crash_restart(cfg, states, base),
+                           states)
 
-    delivered = fault.link_up & ~down.unsqueeze(0)                 # [N, N]
-    stepped, outboxes, infos = node_step(cfg, states,
-                                         route(inflight, delivered), host)
+    delivered = fault.link_up & ~down_all.unsqueeze(0)              # [N, N]
+    stepped, outboxes, infos = node_step(
+        cfg, states, route(inflight, delivered, mesh), host, base)
     new_states = _select_nodes(fault.stall, states, stepped)
     infos = _select_nodes(fault.stall, prev_info, infos)
     sender_up = ~fault.stall

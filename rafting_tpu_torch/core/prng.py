@@ -67,20 +67,26 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+def random_bits(key: torch.Tensor, n: int, base: int = 0) -> torch.Tensor:
     """32-bit random words for a flat shape ``(n,)``: key ``[..., 2]`` ->
-    ``[..., n]`` (partitionable: counter i hashes to ``b1 ^ b2``)."""
+    ``[..., n]`` (partitionable: counter i hashes to ``b1 ^ b2``).
+
+    ``base`` offsets the counters: the words of ``base .. base+n-1``, which
+    are the slice ``[base:base+n]`` of a larger draw from the same key.  A
+    shard that holds groups ``[g0, g0+n)`` draws with ``base=g0``, as
+    jax's partitionable threefry does for each shard of a sharded draw."""
     k1, k2 = key[..., 0:1], key[..., 1:2]
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    lo = torch.arange(base, base + n, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return b1 ^ b2
 
 
-def randint(key: torch.Tensor, n: int, minval: int, maxval: int
-            ) -> torch.Tensor:
+def randint(key: torch.Tensor, n: int, minval: int, maxval: int,
+            base: int = 0) -> torch.Tensor:
     """``jax.random.randint(key, (n,), minval, maxval, dtype=int32)``:
     two 32-bit draws per value reduced modulo the span, as jax does.
-    key ``[..., 2]`` -> int32 ``[..., n]``."""
+    key ``[..., 2]`` -> int32 ``[..., n]``; ``base`` as in
+    :func:`random_bits` (values ``base .. base+n-1`` of the draw)."""
     span = maxval - minval
     if span <= 0:
         span = 1
@@ -88,8 +94,8 @@ def randint(key: torch.Tensor, n: int, minval: int, maxval: int
     m = 2 ** 16 % span
     mult = ((m * m) & _M32) % span         # the square wraps in uint32
     sub = split(key)
-    hi = random_bits(sub[..., 0, :], n)
-    lo = random_bits(sub[..., 1, :], n)
+    hi = random_bits(sub[..., 0, :], n, base)
+    lo = random_bits(sub[..., 1, :], n, base)
     # (hi % span) * mult wraps in uint32 in the reference; the int64
     # product keeps the same low 32 bits.
     off = (((hi % span) * mult) & _M32) + (lo % span)

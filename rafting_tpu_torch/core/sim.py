@@ -10,6 +10,13 @@ the card (and can later be captured as a CUDA graph).
 so blocks of ``group_block`` groups each run the whole tick loop, one
 block after another (as ``lax.map`` runs them in the JAX engine), lane
 for lane the JAX function's result.
+
+``run_cluster_ticks``, ``run_cluster_ticks_nemesis`` and
+``committed_entries`` also take a ``mesh`` (``core/shard.py``): each rank
+then runs its slice of the cluster from ``shard_cluster``, with the full
+config, and the ranks meet only in the collectives of ``route``, the
+nemesis step's crash/stall exchange and the commit total.  The gathered
+result is the unsharded run's, lane for lane.
 """
 
 from __future__ import annotations
@@ -18,18 +25,22 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from . import prng
 from .cluster import auto_host_inbox, cluster_step, cluster_step_nemesis
-from .shard import SUBMIT_PSPEC, info_pspecs, messages_pspecs, state_pspecs
+from .shard import (
+    SUBMIT_PSPEC, Mesh, info_pspecs, messages_pspecs, state_pspecs,
+)
 from .types import (
     EngineConfig, FaultSchedule, Messages, RaftState, StepInfo,
     resolve_device, tree_map,
 )
 
 
-def _on_device(states: RaftState, device) -> None:
-    dev = resolve_device(device)
+def _on_device(states: RaftState, device, mesh: Mesh | None = None
+               ) -> None:
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if states.term.device.type != dev.type:
         raise ValueError(f"cluster state lives on {states.term.device}, "
                          f"the run asked for {dev}")
@@ -37,29 +48,35 @@ def _on_device(states: RaftState, device) -> None:
 
 def _scan_ticks(cfg: EngineConfig, n_ticks: int, states: RaftState,
                 inflight: Messages, prev_info: StepInfo, conn: torch.Tensor,
-                submit_n: torch.Tensor, read_n=None, durable_lag: bool = False
+                submit_n: torch.Tensor, read_n=None, durable_lag: bool = False,
+                mesh: Mesh | None = None
                 ) -> Tuple[RaftState, Messages, StepInfo]:
     info = prev_info
     for _ in range(n_ticks):
         host = auto_host_inbox(cfg, states, submit_n, True, info, read_n,
                                durable_lag)
         states, inflight, info = cluster_step(cfg, states, inflight, host,
-                                              conn)
+                                              conn, mesh)
     return states, inflight, info
 
 
 def run_cluster_ticks(cfg: EngineConfig, n_ticks: int, states: RaftState,
                       inflight: Messages, prev_info: StepInfo,
                       conn: torch.Tensor, submit_n: torch.Tensor,
-                      read_n=None, durable_lag: bool = False, device=None
+                      read_n=None, durable_lag: bool = False, device=None,
+                      mesh: Mesh | None = None
                       ) -> Tuple[RaftState, Messages, StepInfo]:
     """Advance the cluster ``n_ticks`` ticks under a constant offered load
     (``submit_n`` [N, G]; optional ``read_n`` [N, G]).  Runs on the card
     unless ``device`` says otherwise; the state must already live there.
+    On a ``mesh``, every input is this rank's slice (``shard_cluster``),
+    ``cfg`` stays the full config and the run is on ``mesh.device``.
     Returns the final ``(states, inflight, info)``."""
-    _on_device(states, device)
+    _on_device(states, device, mesh)
+    if mesh is not None:
+        cfg = mesh.local_config(cfg)
     return _scan_ticks(cfg, n_ticks, states, inflight, prev_info, conn,
-                       submit_n, read_n, durable_lag)
+                       submit_n, read_n, durable_lag, mesh)
 
 
 def run_cluster_ticks_reads(cfg: EngineConfig, n_ticks: int,
@@ -92,7 +109,8 @@ def run_cluster_ticks_reads(cfg: EngineConfig, n_ticks: int,
 def run_cluster_ticks_nemesis(cfg: EngineConfig, states: RaftState,
                               inflight: Messages, prev_info: StepInfo,
                               sched: FaultSchedule, submit_n: torch.Tensor,
-                              read_n=None, device=None
+                              read_n=None, device=None,
+                              mesh: Mesh | None = None
                               ) -> Tuple[RaftState, Messages, StepInfo]:
     """Advance the cluster ``sched.n_ticks`` ticks under a fault schedule
     (per-tick link masks, crash-restarts, stalls, duplicate delivery),
@@ -102,17 +120,20 @@ def run_cluster_ticks_nemesis(cfg: EngineConfig, states: RaftState,
     the card unless ``device`` says otherwise; state and schedule must
     already live there.  Returns the final ``(states, inflight, info)``;
     a stalled node's StepInfo stays frozen, so its host half stalls
-    too."""
-    _on_device(states, device)
+    too.  On a ``mesh``, as :func:`run_cluster_ticks`, with the
+    schedule's slice from ``shard_fault_schedule``."""
+    _on_device(states, device, mesh)
     if sched.link_up.device.type != states.term.device.type:
         raise ValueError(f"fault schedule lives on {sched.link_up.device}, "
                          f"the cluster state on {states.term.device}")
+    if mesh is not None:
+        cfg = mesh.local_config(cfg)
     info = prev_info
     for t in range(sched.n_ticks):
         fault = tree_map(lambda a: a[t], sched)
         host = auto_host_inbox(cfg, states, submit_n, True, info, read_n)
         states, inflight, info = cluster_step_nemesis(
-            cfg, states, inflight, host, info, fault)
+            cfg, states, inflight, host, info, fault, mesh)
     return states, inflight, info
 
 
@@ -208,9 +229,17 @@ def run_cluster_ticks_blocked(cfg: EngineConfig, n_ticks: int,
             _from_blocks(info_o, inf_specs, G))
 
 
-def committed_entries(states: RaftState) -> torch.Tensor:
+def committed_entries(states: RaftState, mesh: Mesh | None = None
+                      ) -> torch.Tensor:
     """Total entries committed across all groups, each group counted once
     at its furthest node.  An int64 scalar tensor: the JAX engine's total
     is int32 with x64 off and wraps past 2**31 (100k groups reach that
-    after ~21k commits per group)."""
-    return states.commit.amax(dim=0).to(torch.int64).sum()
+    after ~21k commits per group).  On a ``mesh``, the whole cluster's
+    total on every rank: a MAX over the node shards, then a SUM over the
+    group shards."""
+    if mesh is None:
+        return states.commit.amax(dim=0).to(torch.int64).sum()
+    furthest = mesh.all_reduce(states.commit.amax(dim=0),
+                               dist.ReduceOp.MAX, "node")
+    return mesh.all_reduce(furthest.to(torch.int64).sum(),
+                           dist.ReduceOp.SUM, "group")

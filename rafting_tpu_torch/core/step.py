@@ -230,9 +230,15 @@ def _t(a: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
-              host: HostInbox) -> Tuple[RaftState, Messages, StepInfo]:
+              host: HostInbox, group_base: int = 0
+              ) -> Tuple[RaftState, Messages, StepInfo]:
     """Advance every group of every node by one tick (batched over the
-    leading node axis of ``state``/``inbox``/``host``)."""
+    leading node axis of ``state``/``inbox``/``host``).
+
+    ``group_base`` is the global index of the first group held here (a
+    shard of the group axis, ``cfg.n_groups`` wide): the election-timeout
+    draw takes counters ``group_base ..``, so each group draws the bits
+    it draws in the whole cluster's step."""
     G, P, B, L, S, K = (cfg.n_groups, cfg.n_peers, cfg.batch,
                         cfg.log_slots, cfg.max_submit, cfg.read_slots)
     s = state
@@ -244,7 +250,7 @@ def node_step(cfg: EngineConfig, state: RaftState, inbox: Messages,
     keys = prng.split(s.rng)
     rng, k_to = keys[:, 0], keys[:, 1]
     rand_to = prng.randint(k_to, G, cfg.election_ticks,
-                           2 * cfg.election_ticks)    # [N, G]
+                           2 * cfg.election_ticks, group_base)  # [N, G]
 
     me = s.node_id                                    # [N]
     meG = me.unsqueeze(-1)

@@ -340,7 +340,8 @@ class FaultSchedule(_Tree):
         )
 
 
-def crash_restart(cfg: EngineConfig, s: RaftState) -> RaftState:
+def crash_restart(cfg: EngineConfig, s: RaftState, group_base: int = 0
+                  ) -> RaftState:
     """Volatile-state reset for a crash-restart: durable state (term,
     ballot, log, config cache) survives, everything else returns to boot
     values, and the election timer re-arms from a fresh split of the
@@ -349,7 +350,9 @@ def crash_restart(cfg: EngineConfig, s: RaftState) -> RaftState:
     JAX ``vmap`` does: each node's result is the one-node result.
 
     The flight recorder survives and records the restart, stamped with
-    the pre-step clock; heat survives; quorum-contact lanes reset."""
+    the pre-step clock; heat survives; quorum-contact lanes reset.
+    ``group_base`` offsets the timer draw's counters for a shard of the
+    group axis, as in ``node_step``."""
     G, P, K = cfg.n_groups, cfg.n_peers, cfg.read_slots
     lead = s.term.shape[:-1]
     dev = s.term.device
@@ -357,7 +360,7 @@ def crash_restart(cfg: EngineConfig, s: RaftState) -> RaftState:
     rng, k = keys[..., 0, :], keys[..., 1, :]
     now = s.now.unsqueeze(-1)                         # [..., 1]
     deadline = now + prng.randint(k, G, cfg.election_ticks,
-                                  2 * cfg.election_ticks)
+                                  2 * cfg.election_ticks, group_base)
     z = lambda *sh: _z(lead + sh, dev)
     f = lambda *sh: _z(lead + sh, dev, BOOL)
     nil = lambda: torch.full(lead + (G,), NIL, dtype=I32, device=dev)
