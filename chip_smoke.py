@@ -136,6 +136,27 @@ no result line):
              rank launched the kernel once a tick, never on its strided
              path, and held it against its plain version on its last
              launch's operands.
+17. stages  — the last five stages of rafting_tpu_torch/tools/bench.py
+             in this process: the member child at 100k groups (the
+             kernel against the fixed-majority baseline at P=3, 32 + 2 x
+             64 ticks each; then the P=6 3->3-disjoint walk: learners in,
+             catch-up, joint switch, auto-leave, under one submission a
+             group a tick), one bench_runtime.run at 1,024 groups with
+             the latency and attribution planes pinned on (1/64 span
+             sampling, heat lanes, hop tracing) and one with them pinned
+             off, 2 rounds each, the open-loop sweep (8 groups, 1 s a
+             point, admission on and off) and the 2PC transfer stage (3
+             groups, 2 s a phase).  Gates: the walk converged in under
+             64 chunks, lost no committed entry and committed again
+             after it; one dense launch per tick of the kernel run and
+             the walk, none in the fixed run; the kernel equals its
+             plain version on the last launch and on a launch inside
+             the joint window; the pins took, the heat active set is
+             non-empty and hops were traced; the open loop acknowledged
+             work with admission on; transfers committed; no strided
+             launch.  The member ratio (>= 0.95x fixed) and the
+             no-collapse plateau are printed as met or missed, not
+             gated: the CLI asserts them, and the planes' 2% budgets.
 ``--profile`` runs probe, build and kernel, then 8 headline ticks, 32
 blocked bench ticks (4 x 25,000 groups, 4 a call) and 8 nemesis ticks
 inside the split-brain window under torch.profiler (the top kernels by
@@ -145,13 +166,15 @@ result line.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; before it, one JSON line lists each kernel with its launches
-on the path that launched it (the quorum kernel eleven times: P=3 on the
+on the path that launched it (the quorum kernel thirteen times: P=3 on the
 headline path, P=3 per block of 25,000 groups on the bench path, P=5 on
 the nemesis path, P=3 at N=1 per node tick on the
 runtime, api-1k and chaos paths, at N=1 per node_step on the oracle path,
 P=3 on the snapshot path, P=5 on the config4 path, and P=4 on the shard
 path: world 1's [4, 32768, 4] and, from rank 0 of world 4, each rank's
-[2, 16384, 4]), its error against the plain version, its
+[2, 16384, 4]; P=6 on the member path, its last launch and one inside
+the joint window), its error against the plain
+version, its
 time, the plain version's time and its bound, its device time per launch
 (CUDA events, inputs cold in L2), that time's share of the bound, and the
 first design's device time on the same inputs.  The
@@ -2133,6 +2156,204 @@ def phase_shard() -> list:
     return kerns
 
 
+# [stages]: bench.py's last five stages through the twin
+# (rafting_tpu_torch/tools/bench.py), in this process: the member child at
+# full width (100k groups, P = 3 A/B, then the P = 6 walk), one runtime run
+# with the whole attribution plane on (1/64 span sampling, heat lanes, hop
+# tracing) and one with it off at the [bench] runtime scale, 2 rounds each
+# (a run's set-up takes most of its time, and the smoke gates no rate), the
+# open-loop sweep at its 8 groups and the txn stage at 3 groups, both with
+# shorter phases (STAGES_ENV).  Correctness gates here; the member ratio
+# and the no-collapse plateau are printed as met or missed, and the CLI
+# asserts them with the planes' 2% budgets (one pair of runs at this size
+# sits inside its own noise, so no overhead is printed).
+STAGES_MEMBER_GROUPS = 100_000
+STAGES_RT_GROUPS = BENCH_RT_GROUPS
+STAGES_RT_ROUNDS = 2
+STAGES_ENV = {"BENCH_OPENLOOP_DUR": "1", "BENCH_TXN_GROUPS": "3",
+              "BENCH_TXN_DUR": "2"}
+
+
+def _stage_lines(fn, *args, **kw):
+    """Run one bench stage with its JSON lines logged under [stages]."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kw)
+    finally:
+        for ln in buf.getvalue().splitlines():
+            log(f"[stages] {ln}")
+
+
+def _met(ok: bool) -> str:
+    return "met" if ok else "missed"
+
+
+def phase_stages() -> dict:
+    import tempfile
+    from rafting_tpu_torch.ops import quorum
+    from rafting_tpu_torch.tools import _artifact, bench
+
+    t_phase = time.perf_counter()
+    G = STAGES_MEMBER_GROUPS
+    art_dir = tempfile.mkdtemp(prefix="stages-artifacts-")
+    old_art, _artifact.ARTIFACT_DIR = _artifact.ARTIFACT_DIR, art_dir
+    old_env = {k: os.environ.get(k) for k in STAGES_ENV}
+    os.environ.update(STAGES_ENV)
+    try:
+        # (a) The member child: the kernel against the fixed-majority
+        # baseline at P = 3, then the 3 -> 3-disjoint walk at P = 6.  The
+        # first walk chunk's last launch lies inside the joint window (its
+        # nodes hold C_old,new or C_new): its operands are kept for a
+        # second kernel entry.
+        quorum.reset_launch_counts()
+        marks = {}
+
+        def on_step(label, _cluster):
+            n = quorum.launch_counts["quorum_commit"]
+            if label == "catch-up":
+                marks["joint_from"] = n
+            elif label == "walk":
+                marks["joint_to"] = n
+                if "joint" not in marks and _TICK_OPERANDS[0] is not None:
+                    marks["joint"] = tuple(a.clone()
+                                           for a in _TICK_OPERANDS[0])
+
+        t0 = time.perf_counter()
+        res, walk = _stage_lines(bench.member_run, G, check=False,
+                                 on_step=on_step)
+        member_s = time.perf_counter() - t0
+        launches = _launches("stages-member")
+        want = 32 + 2 * 64 + walk["ticks"]
+        if launches != want:
+            raise AssertionError(
+                f"[stages] member: quorum kernel launched {launches} times "
+                f"(want {want}: one per tick of the masked run and of the "
+                f"walk, none in the fixed-majority run)")
+        kern = _kernel_entry("quorum_commit[member]", launches)
+        if "joint" not in marks:
+            raise AssertionError("[stages] member: no kernel launch in the "
+                                 "joint window")
+        joint_lanes = int((marks["joint"][6] != 0).sum())
+        if not joint_lanes:
+            raise AssertionError("[stages] member: the joint window's "
+                                 "launch had no C_new lane")
+        _TICK_OPERANDS[0] = marks.pop("joint")
+        kern_joint = _kernel_entry("quorum_commit[member-joint]",
+                                   marks["joint_to"] - marks["joint_from"])
+        for k in (kern, kern_joint):
+            if k["shape"] != [6, G, 6]:
+                raise AssertionError(f"[stages] member: {k['name']} ran "
+                                     f"{k['shape']}, want [6, {G}, 6]")
+        ratio = res["masked_vs_fixed"]
+        walk_ticks = 2 + 48 + 16 * walk["chunks"]
+        log(f"[stages] {json.dumps(res)}")
+        log(f"[stages] member {G} groups: P=3 fixed-majority "
+            f"{res['cps_fixed']:.0f} commits/s, kernel "
+            f"{res['cps_masked']:.0f} ({ratio}x; bench.py's >= 0.95 "
+            f"{_met(ratio >= 0.95)}); P=6 walk converged in "
+            f"{walk['chunks']} chunks, {res['walk_groups_per_sec']:.0f} "
+            f"groups/s ({walk['elapsed_s']:.3f} s, "
+            f"{walk['elapsed_s'] / walk_ticks * 1e3:.3f} ms/tick over "
+            f"{walk_ticks} ticks); no committed entry lost (post - pre "
+            f">= {int((walk['post'] - walk['pre']).min())}), commits "
+            f"resumed (+{int((walk['resume'] - walk['post']).min())} at "
+            f"least); peak device memory "
+            f"{walk['peak_bytes'] / 2**30:.3f} GiB; {member_s:.1f}s; "
+            f"quorum_commit {launches} launches ({walk['launches']}), "
+            f"last launch {_kernel_line(kern)}; joint window "
+            f"{kern_joint['launches']} launches, first walk chunk's last "
+            f"launch ({joint_lanes} lanes with C_new) "
+            f"{_kernel_line(kern_joint)}")
+
+        # (b) The latency and attribution planes: one bench_runtime run
+        # with all of it pinned on, one with all of it pinned off.
+        from rafting_tpu_torch.tools import bench_runtime
+        quorum.reset_launch_counts()
+        t0 = time.perf_counter()
+        on = bench_runtime.run(STAGES_RT_GROUPS, rounds=STAGES_RT_ROUNDS,
+                               lat_sample=64, heat=True, hops=True)
+        off = bench_runtime.run(STAGES_RT_GROUPS, rounds=STAGES_RT_ROUNDS,
+                                lat_sample=0, heat=False, hops=False)
+        rt_launches = _launches("stages-planes")
+        hops = on["hops"]
+        if (on["latency"]["sample_rate"] != 64
+                or off["latency"]["sample_rate"] != 0
+                or not on["heat"]["enabled"] or off["heat"]["enabled"]
+                or not hops["enabled"] or off["hops"]["enabled"]):
+            raise AssertionError(
+                f"[stages] planes: the pins did not take (sample rate "
+                f"{on['latency']['sample_rate']} / "
+                f"{off['latency']['sample_rate']}, heat "
+                f"{on['heat']['enabled']} / {off['heat']['enabled']}, hops "
+                f"{hops['enabled']} / {off['hops']['enabled']})")
+        if (not on["heat"].get("active_set") or not rt_launches
+                or not hops["hop_requests_sent"]
+                or not hops["hop_finalized"]):
+            raise AssertionError(
+                f"[stages] planes: heat active set "
+                f"{on['heat'].get('active_set')}, hop counters {hops}, "
+                f"{rt_launches} kernel launches")
+        log(f"[stages] planes at {STAGES_RT_GROUPS} groups x "
+            f"{STAGES_RT_ROUNDS} rounds: pins took (sample rate 64 / 0, "
+            f"heat and hops on / off); attributed run {on['value']} durable "
+            f"commits/s, bare run {off['value']}; heat active set "
+            f"{on['heat']['active_set']}, hop counters {hops}; "
+            f"{time.perf_counter() - t0:.1f}s; quorum_commit {rt_launches} "
+            f"launches")
+
+        # (c) The open-loop sweep, admission on and then off.
+        quorum.reset_launch_counts()
+        t0 = time.perf_counter()
+        ol = _stage_lines(bench.run_openloop_stage, "", check=False)
+        ol_launches = _launches("stages-openloop")
+        on = ol["sweep"]["on"]
+        acked = sum(d["ok"] for d in on)
+        if not acked or not ol_launches:
+            raise AssertionError(f"[stages] open loop: admission on acked "
+                                 f"{acked}, {ol_launches} kernel launches")
+        log(f"[stages] open loop at {ol['scale']} groups: capacity "
+            f"{ol['capacity']} ops/s; admission on goodput "
+            + ", ".join(f"{d['offered_x_capacity']:g}x {d['goodput']}"
+                        for d in on)
+            + "; off " + ", ".join(f"{d['offered_x_capacity']:g}x "
+                                   f"{d['goodput']}"
+                                   for d in ol["sweep"]["off"])
+            + f" ops/s; {acked} acked with admission on; no-collapse "
+            f"plateau {_met(ol['no_collapse']['ok'])} "
+            f"({ol['no_collapse']['why']}); "
+            f"{time.perf_counter() - t0:.1f}s; quorum_commit {ol_launches} "
+            f"launches")
+
+        # (d) Cross-group 2PC transfers against independent writes.
+        quorum.reset_launch_counts()
+        t0 = time.perf_counter()
+        (tx,) = _stage_lines(bench.run_txn_stage, "")
+        tx_launches = _launches("stages-txn")
+        if not tx["txn"]["ok"] > 0 or not tx_launches:
+            raise AssertionError(f"[stages] txn: {tx['txn']}, "
+                                 f"{tx_launches} kernel launches")
+        log(f"[stages] txn at {tx['scale']} groups, {tx['clients']} "
+            f"clients: {tx['txn_per_sec']} txn/s ({tx['txn']}), abort rate "
+            f"{tx['abort_rate']}, independent writes "
+            f"{tx['independent_pairs_per_sec']} pairs/s, atomicity tax "
+            f"{tx['atomicity_tax']}; {time.perf_counter() - t0:.1f}s; "
+            f"quorum_commit {tx_launches} launches")
+    finally:
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        _artifact.ARTIFACT_DIR = old_art
+        shutil.rmtree(art_dir, ignore_errors=True)
+    log(f"[stages] all five stages passed their gates in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return [kern, kern_joint]
+
+
 def _profile(label: str, tick, neighbours: bool = False,
              per_call: int = 1) -> None:
     """8 ticks of ``tick()`` (8 calls of ``per_call`` ticks each) under
@@ -2277,6 +2498,7 @@ def main() -> int:
                   phase_config4):
         kernels.append(_timed(phase))
     kernels += _timed(phase_shard)
+    kernels += _timed(phase_stages)
     log(f"[time] whole script {time.perf_counter() - t0:.1f}s")
     for k in kernels:
         del k["bytes"]

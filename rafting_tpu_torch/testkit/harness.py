@@ -86,12 +86,12 @@ class LocalCluster:
         reader-thread / accumulator plane is exercised under the same
         manual-tick control (the reference's system test runs real TCP,
         test/resources/raft1.xml:3-7).
+        ``device``: forwarded to every RaftNode, where its engine runs; the
+        device default (None) is the CUDA card, raising without one, and
+        device ``"cpu"`` runs the plain version.
         ``pipeline`` / ``wal_shards`` / ``host_workers``: forwarded to
         every RaftNode (see RaftNode.__init__; None = the node's
-        env-driven defaults).
-        ``device``: forwarded to every RaftNode — where its engine runs
-        (default the CUDA card, raising without one; ``"cpu"`` for the
-        plain version)."""
+        env-driven defaults)."""
         self.cfg = cfg
         self.root = root
         self.seed = seed

@@ -15,10 +15,11 @@ breakdown.
 Offered load follows the reference: dense per group at small group
 counts, many quiet groups at 32k-100k.  The same ``BENCH_RT_*`` knobs,
 JSON keys and A/B stages (``BENCH_PIPELINE``, ``BENCH_HOSTPAR``,
-``BENCH_NATIVE``).  One departure: the reference pins its engine to the
+``BENCH_NATIVE``).  Departures: the reference pins its engine to the
 CPU unless ``--default-backend`` is given; the twin runs the engine on
 the card, and on the CPU only when the caller passes ``--device cpu``
 (or ``run(..., device="cpu")``).  With no card and no device it exits.
+A run with ``hops`` pinned also reports the hop tracer's counters.
 
 Prints one JSON line per scale.
 """
@@ -33,6 +34,11 @@ import tempfile
 import time
 
 import numpy as np
+
+# The hop tracer's counters (utils/latency.py HopTracer) a run reports
+# when ``hops`` is pinned.
+HOP_COUNTERS = ("hop_tracked", "hop_requests_sent", "hop_echoes",
+                "hop_finalized")
 
 
 def _shape(n_groups: int):
@@ -61,7 +67,9 @@ def run(n_groups: int = 1024, rounds: int = 0, burst_n: int = 0,
     host tier on/off (RAFT_NATIVE_HOST) for the run; None: native when
     the library loads.  ``lat_sample``: pins RAFT_LAT_SAMPLE (1/N span
     sampling; 0 turns the latency plane off).  ``heat``: the per-group
-    heat lanes in/out (None: off).  ``hops``: pins RAFT_HOP_TRACE.
+    heat lanes in/out (None: off).  ``hops``: pins RAFT_HOP_TRACE, and
+    the result then carries ``hops``: the tracer's counters summed over
+    the nodes (a key the reference's result lacks).
     ``device``: where the engine runs (default the card; raises without
     one)."""
     from ..core.types import LEADER, EngineConfig, resolve_device
@@ -191,7 +199,7 @@ def run(n_groups: int = 1024, rounds: int = 0, burst_n: int = 0,
                     "apply_ack")
                     if (s := _summ(f"lat_{name}_s")) is not None},
             }
-        return {
+        res = {
             "metric": f"durable-runtime commits/sec @{n_groups} groups "
                       f"(3 nodes, WAL fsync barrier, applies, {transport})",
             "value": round(commits / elapsed),
@@ -215,6 +223,13 @@ def run(n_groups: int = 1024, rounds: int = 0, burst_n: int = 0,
                       .get("active_set")}
                      if slow.heat is not None else {"enabled": False}),
         }
+        if hops is not None:
+            # The pinned hop tracer's counters, summed over the nodes.
+            res["hops"] = {"enabled": slow._hops is not None,
+                           **{k: sum(int(n.metrics[k])
+                                     for n in c.nodes.values())
+                              for k in HOP_COUNTERS}}
+        return res
     finally:
         c.close()
         shutil.rmtree(root, ignore_errors=True)

@@ -62,7 +62,12 @@ took up to 80 s instead of 0.1-2 s on the CPU, and over 800 s once on
 the card.  On the CPU nothing is measured and the target stays at the
 floor, as the committed artifacts ran (a CPU step is ~25-45 ms).  A history with more than ``INFO_LIMIT``
 unknown-outcome writes on one key is refused instead of judged: the
-checker's search grows exponentially in them.
+checker's search grows exponentially in them.  Before the search,
+``judge`` drops each unknown-outcome write that no acknowledged read
+observed (``prune_unobserved``): that leaves the verdict as it was and
+takes the search's cost out of the writes a cut strands.  On the CPU
+this took one isolate soak's check from 14.9 s to 0.001 s (seed 7, 23
+unknown outcomes, 5 of them appends on the list key).
 
 Usage:
     python -m rafting_tpu_torch.tools.chaos_run --device cuda --seed 7 \
@@ -94,9 +99,41 @@ CALIBRATION_STEPS = (5, 20)     # warm-up, measured
 INFO_LIMIT = 48
 
 
+def prune_unobserved(ops):
+    """One key's ops less the unknown-outcome writes that no acknowledged
+    read observed, where that cannot change the verdict:
+
+    * on a key of appends and reads, an unknown append whose value is in
+      no acknowledged read's list: once applied, it stays in every later
+      list, so no acknowledged read can follow it and it may as well
+      never have happened;
+    * on a key of writes and reads, an unknown write whose value no
+      acknowledged read returned: no read can fall between it and the
+      next write, so the same holds.
+
+    A key that mixes writes and appends keeps every op."""
+    from ..testkit.linz import _norm
+
+    live = {o.kind for o in ops if o.status == "ok" or (
+        o.status == "info" and o.kind in ("w", "a"))}
+    reads = [_norm(o.result) for o in ops
+             if o.status == "ok" and o.kind == "r"]
+    if "w" not in live:
+        kind = "a"
+        seen = {v for r in reads if isinstance(r, tuple) for v in r}
+    elif "a" not in live:
+        kind, seen = "w", set(reads)
+    else:
+        return ops
+    return [o for o in ops if not (o.status == "info" and o.kind == kind
+                                   and _norm(o.value) not in seen)]
+
+
 def judge(history):
     """``linz.check`` of ``history``, refused (RuntimeError) past
-    INFO_LIMIT unknown-outcome writes on one key."""
+    INFO_LIMIT unknown-outcome writes on one key, with each key's
+    unobserved unknown-outcome writes pruned first.  The result counts
+    the whole history's ops."""
     from ..testkit import linz
 
     info = {}
@@ -106,7 +143,11 @@ def judge(history):
     if max(info.values(), default=0) > INFO_LIMIT:
         raise RuntimeError(f"unknown-outcome writes per key {info} exceed "
                            f"{INFO_LIMIT}: the history cannot be judged")
-    return linz.check(history)
+    verdict = linz.check({key: prune_unobserved(ops)
+                          for key, ops in history.by_key().items()})
+    verdict.n_ops = len(history.ops())
+    verdict.counts = history.counts()
+    return verdict
 
 
 def calibrate(cfg, root: str, device) -> float:

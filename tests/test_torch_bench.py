@@ -5,8 +5,9 @@ A scale's child of each, on the CPU in subprocesses at the same seed,
 scale and blocking, reports the same committed count (and the same read
 totals, trace events and faulted commits in those stages): the two
 engines are bit-exact, so the counts are exact.  Without a card and
-without ``--device cpu`` the twin exits non-zero, and each stage it has
-not ported refuses by name.  The new modules import without jax.
+without ``--device cpu`` the twin exits non-zero (the five stages that
+replace the ladder: tests/test_torch_bench_stages.py).  The new modules
+import without jax.
 """
 
 import json
@@ -15,6 +16,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from rafting_tpu_torch.tools import bench as twin
 
@@ -78,17 +80,11 @@ def test_no_card_exits_nonzero():
         assert not r.stdout.strip(), r.stdout
 
 
-@pytest.mark.parametrize("flag", twin.UNPORTED_STAGES)
-def test_unported_stage_refuses(flag, monkeypatch):
-    monkeypatch.setenv(flag, "1")
-    with pytest.raises(SystemExit) as e:
-        twin.main(["--device", "cpu"])
-    assert e.value.code == (f"{flag}: stage not ported yet (ROADMAP queue "
-                            f"1 item 5)")
-
-
-def test_member_child_and_bad_device_refuse():
-    with pytest.raises(SystemExit, match="BENCH_MEMBER"):
+def test_member_child_and_bad_device_refuse(monkeypatch):
+    """The member child needs the card unless it is given ``cpu``; a
+    device other than cpu or cuda is refused."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         twin.main(["--member-child", "64"])
     with pytest.raises(SystemExit, match="--device"):
         twin.main(["--device", "tpu"])
@@ -108,6 +104,14 @@ def test_bench_modules_import_without_jax():
         "import rafting_tpu_torch.tools.bench_runtime\n"
         "import rafting_tpu_torch.tools.profile_runtime\n"
         "from rafting_tpu_torch import run_cluster_ticks_blocked\n"
+        # What the member, open-loop, txn, lat and heat stages import.
+        "import rafting_tpu_torch.api.stub\n"
+        "import rafting_tpu_torch.machine.kv_machine\n"
+        "import rafting_tpu_torch.runtime.txn\n"
+        "import rafting_tpu_torch.testkit.chaos\n"
+        "import rafting_tpu_torch.testkit.harness\n"
+        "import rafting_tpu_torch.testkit.openloop\n"
+        "from rafting_tpu_torch.tools.bench import STAGES, member_walk\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       m.split('.')[0] in ('jax', 'flax', 'rafting_tpu')]\n"
         "assert not bad, bad\n"

@@ -109,3 +109,91 @@ def test_calibrate_measures_a_throwaway_cluster(tmp_path):
     root = tmp_path / "calibration"
     assert chaos_run.calibrate(cfg, str(root), "cpu") > 0
     assert not root.exists()
+
+
+def _random_history(seed: int, mode: str):
+    """One key's seeded history from a real register+list run: three
+    clients, each op taking effect (or, for an unknown outcome, maybe
+    not) between its invocation and its response; one read in four
+    then has its result corrupted, so some histories are not
+    linearizable."""
+    import random
+
+    from rafting_tpu_torch.testkit.history import History
+
+    rng = random.Random(seed)
+    kinds = {"a": "ar", "w": "wr", "mixed": "war"}[mode]
+    plan = []
+    for i in range(rng.randint(4, 11)):
+        t0 = rng.random() * 10
+        t1 = t0 + rng.random() * 3
+        plan.append((t0, rng.uniform(t0, t1), t1, f"c{i % 3}",
+                     rng.choice(kinds), f"v{i}", rng.random() < 0.35))
+    events = []
+    for i, (t0, te, t1, *_rest) in enumerate(plan):
+        events += [(t0, 0, i), (te, 1, i), (t1, 2, i)]
+    h, ids, got, state = History(), {}, {}, None
+    for _t, what, i in sorted(events):
+        _t0, _te, _t1, proc, kind, value, unknown = plan[i]
+        if what == 0:
+            ids[i] = h.invoke(proc, kind, "k", None if kind == "r" else value)
+        elif what == 1 and not (unknown and kind != "r"
+                                and rng.random() < 0.5):
+            if kind == "w":
+                state = value
+            elif kind == "a":
+                state = (list(state) if isinstance(state, list) else []) \
+                    + [value]
+            got[i] = list(state) if isinstance(state, list) else state
+        elif what == 2:
+            if unknown:
+                h.info(ids[i], "timeout")
+            else:
+                res = got.get(i)
+                if kind == "r" and rng.random() < 0.25:
+                    res = rng.choice([None, "v0", ["v1"], ["v0", "v2"]])
+                h.ok(ids[i], res)
+    return h
+
+
+@pytest.mark.parametrize("mode", ["a", "w", "mixed"])
+def test_judge_pruning_keeps_the_checkers_verdict(mode):
+    """``judge`` drops unobserved unknown-outcome writes before the
+    search: over 300 seeded histories per key kind its verdict equals
+    the unpruned checker's, and both verdicts occur."""
+    from rafting_tpu_torch.testkit import linz
+
+    verdicts = set()
+    for seed in range(300):
+        h = _random_history(seed, mode)
+        want = linz.check(h).ok
+        assert chaos_run.judge(h).ok == want, (seed, h.to_json())
+        verdicts.add(want)
+    assert verdicts == {True, False}
+
+
+def test_judge_prunes_the_writes_a_cut_strands():
+    """Twenty unknown-outcome appends that no read observed, each
+    concurrent with every later op, are dropped before the search (the
+    unpruned search walks their orderings); one an acknowledged read
+    saw is kept, and a read that misses an acknowledged append still
+    fails."""
+    from rafting_tpu_torch.testkit.history import History
+
+    h = History()
+    ok = h.invoke("c0", "a", "l0", "x")
+    h.ok(ok, 1)
+    seen = h.invoke("c1", "a", "l0", "s")
+    for i in range(20):
+        h.invoke("c2", "a", "l0", f"lost{i}")
+    h.info(seen, "timeout")
+    read = h.invoke("c0", "r", "l0")
+    h.ok(read, ["x", "s"])
+    kept = chaos_run.prune_unobserved(h.by_key()["l0"])
+    assert sorted(o.value for o in kept if o.kind == "a") == ["s", "x"]
+    verdict = chaos_run.judge(h)
+    assert verdict.ok and verdict.n_ops == 23
+    assert verdict.counts == {"ok": 2, "fail": 0, "info": 21}
+    bad = h.invoke("c1", "r", "l0")
+    h.ok(bad, ["s"])
+    assert not chaos_run.judge(h).ok

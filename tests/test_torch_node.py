@@ -480,6 +480,8 @@ COPIES = [
 EDITED = {"utils/tracelog.py": ["trace_to_numpy"],
           "transport/codec.py": ["messages_template"],
           "api/stub.py": ["RaftStub._forwarded"],
+          # Restores one node's state as torch tensors on ``device``.
+          "log/store.py": ["restore_raft_state"],
           "transport/loopback.py": ["LoopbackTransport.close",
                                     "LoopbackTransport.forward_async"],
           "transport/tcp.py": ["TcpTransport.close",
@@ -536,7 +538,8 @@ def test_copied_module_matches_reference(rel):
 # ``--device`` and imports the port's API relatively; those reference
 # lines are mapped as listed.  The chaos kit's ``ProcCluster`` takes the
 # device as a keyword with no default and spawns the port's noderun with
-# ``--device`` instead of pinning JAX to the CPU.
+# ``--device`` instead of pinning JAX to the CPU.  ``LocalCluster`` hands
+# its ``device`` to every node.
 DEVICE_SEAMS = {
     "api/factory.py": [],
     "api/container.py": [],
@@ -545,6 +548,7 @@ DEVICE_SEAMS = {
         (rb"rafting_tpu\.tools\.noderun", b"rafting_tpu_torch.tools.noderun"),
         (rb"from rafting_tpu\.api import", b"from ..api import"),
     ],
+    "testkit/harness.py": [],
     "testkit/chaos.py": [
         (rb"^.*\bJAX_PLATFORMS\b.*\n", b""),
         (rb"^.*election_mul: float = 3\.0\):\n", b""),
