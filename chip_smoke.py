@@ -58,6 +58,15 @@ no result line):
              submit, restart it from its WAL, drain), with the durable
              pipeline off and then on.  h_role/h_term/h_commit/h_leader
              of every node equal at every round; machine files byte-equal.
+             Then the same script on two pipelined clusters on the card,
+             one whose nodes replay node_step as a CUDA graph (the
+             default, runtime/step_graph.py) and one whose nodes run the
+             same step uncaptured (capture switched off on each node
+             before its first tick): every lane of every
+             node's state, step info and outbox equal after every round;
+             the replayed nodes replayed and the others captured nothing;
+             at the default config and with the flight recorder, heat
+             lanes, CheckQuorum and debug checks on.
 9. runtime — BASELINE.json configs[2] (10k groups, PreVote, randomized
              leader churn) through three RaftNodes on the card over
              loopback, pipelined, NullProvider, bench_runtime.py's offered
@@ -90,7 +99,14 @@ no result line):
              groups and of the forwarded ones; every
              acknowledged set reads back on all three nodes,
              linz.check passes on 64 sampled groups, no snapshot is taken,
-             and every node tick launched the kernel once.
+             and every node tick launched the kernel once (a graph replay
+             counts its launch).  Each ready wait prints each node's
+             ticks and tick p50/max over the wait and over the wave before
+             it; a wait that does not begin ready prints, per leader node,
+             the led groups not ready and, per peer, those with an RPC
+             timeout within recovery_ticks, a fail streak past
+             avail_crit, no reply yet, a timeout since the wave began, and
+             the groups in a leadership transfer.
 12. oracle  — the port's node_step on the card against the scalar oracle
              (testkit/oracle.py) on the host, every state lane, outbound
              message and step-info field at every step, under seeded
@@ -252,6 +268,11 @@ def _release_host_memory() -> None:
     ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
+# The card's name and power limit as nvidia-smi gives them, once probed:
+# printed beside the timings of the phases that measure node ticks.
+_CARD = ["(card not probed)"]
+
+
 def phase_probe() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device — this script runs "
@@ -265,6 +286,7 @@ def phase_probe() -> str:
     log(f"[probe] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count "
         f"{torch.cuda.device_count()} | {card}")
+    _CARD[0] = card
     return card
 
 
@@ -863,6 +885,74 @@ def phase_runtime_parity() -> None:
             f"submissions), machine files byte-equal "
             f"({sum(len(b) for b in r['files'].values())} bytes); "
             f"{time.perf_counter() - t0:.1f}s")
+    # The node's step replayed as a CUDA graph (the card's default,
+    # runtime/step_graph.py) against the same step run uncaptured (each
+    # node's capture switched off before its first tick), both on the
+    # card and pipelined: every lane of
+    # every node's state, step info and outbox equal after every round,
+    # through the script's election, submissions, leader kill (a leader
+    # change in every group it led) and restart; at the default config
+    # and with every optional subtree of the step on.
+    full = dataclasses.replace(cfg, trace_depth=16, heat=True,
+                               check_quorum=True, debug_checks=True)
+    for label, c_cfg in (("default", cfg), ("subtrees on", full)):
+        _graph_parity(label, c_cfg)
+
+
+def _graph_parity(label: str, cfg) -> None:
+    import tempfile
+    from rafting_tpu_torch import LocalCluster
+    from rafting_tpu_torch.testkit.lockstep import pinned_env, run_script
+    with tempfile.TemporaryDirectory() as root, pinned_env():
+        t0 = time.perf_counter()
+        cl = [LocalCluster(cfg, os.path.join(root, d), device="cuda")
+              for d in ("eager", "graph")]
+        for n in cl[0].nodes.values():
+            n._stepper.capture = False
+        steppers = [[n._stepper for n in c.nodes.values()] for c in cl]
+        spent = [0.0, 0.0]
+        for k, c in enumerate(cl):
+            def start_node(i, real=c.start_node, k=k):
+                n = real(i)
+                if k == 0:
+                    n._stepper.capture = False
+                steppers[k].append(n._stepper)
+                return n
+
+            def tick(rounds=1, real=c.tick, k=k):
+                t = time.perf_counter()
+                real(rounds)
+                spent[k] += time.perf_counter() - t
+            c.start_node, c.tick = start_node, tick
+        try:
+            r = run_script(cl, lanes=True)
+        finally:
+            for c in cl:
+                c.close()
+    caps = [sum(st.captures for st in ss) for ss in steppers]
+    reps = [sum(st.replays for st in ss) for ss in steppers]
+    if any(st._layouts or st.state is not None for ss in steppers
+           for st in ss):
+        raise AssertionError("a closed node still holds its step's graphs "
+                             "or buffers")
+    replay_s = sum(st.replay_s for st in steppers[1])
+    if caps[0] or reps[0] or any(st.capture for st in steppers[0]):
+        raise AssertionError(f"the uncaptured cluster captured {caps[0]} "
+                             f"graphs and replayed {reps[0]} ticks")
+    if not all(st.capture for st in steppers[1]) or \
+            reps[1] < 3 * r["rounds"] // 2:
+        raise AssertionError(f"the replayed cluster replayed {reps[1]} "
+                             f"node ticks in {r['rounds']} rounds")
+    log(f"[runtime-parity] CUDA graph, {label}: node_step replayed "
+        f"({caps[1]} graphs captured by {len(steppers[1])} nodes, "
+        f"{reps[1]} replays) == uncaptured, on every lane of every node's "
+        f"state, step info and outbox at every one of {r['rounds']} "
+        f"rounds (killed node {r['victim']}, {len(r['acked'])} "
+        f"acknowledged submissions); a round of three node ticks took "
+        f"{spent[0] / r['rounds'] * 1e3:.1f} ms uncaptured, "
+        f"{spent[1] / r['rounds'] * 1e3:.1f} ms replayed, of which "
+        f"{replay_s / max(reps[1], 1) * 1e3:.3f} ms of host time per "
+        f"replay call, on {_CARD[0]}; {time.perf_counter() - t0:.1f}s")
 
 
 # BASELINE.json configs[2] driven as bench_runtime.py drives its 10k-group
@@ -1032,6 +1122,7 @@ def phase_runtime() -> dict:
         # Leader churn: the node leading the most groups dies.
         led = {i: int((n.h_role == LEADER).sum()) for i, n in c.nodes.items()}
         victim = max(led, key=led.get)
+        steppers = [n._stepper for n in c.nodes.values()]
         c.kill_node(victim)
         a0, t0 = audit.seconds, time.perf_counter()
         churn = 0
@@ -1043,7 +1134,7 @@ def phase_runtime() -> dict:
                                      f"groups leaderless {churn} rounds "
                                      f"after the kill")
         churn_s = time.perf_counter() - t0 - (audit.seconds - a0)
-        c.restart_node(victim)
+        steppers.append(c.restart_node(victim)._stepper)
         drain = 0
         while True:
             tick_round()
@@ -1087,7 +1178,9 @@ def phase_runtime() -> dict:
             f"{RUNTIME_SAMPLE} sampled groups all read back ({everywhere} "
             f"on all 3 nodes; reading them took {audit.seconds:.1f}s, "
             f"outside the timings); quorum_commit {launches} launches in "
-            f"{ticks} node ticks, {_kernel_line(kern)}; peak memory "
+            f"{ticks} node ticks ({sum(st.replays for st in steppers)} of "
+            f"them in replays of a captured node_step), "
+            f"{_kernel_line(kern)}; peak memory "
             f"{peak / 2**30:.3f} GiB")
         return kern
     finally:
@@ -1374,6 +1467,92 @@ def _quantile(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(q * len(xs)))]
 
 
+def _record_ticks(node, out: list) -> None:
+    """Append ``(end, seconds)`` of each of ``node``'s ticks to ``out``
+    (for the printed tick times only; the tick is unchanged)."""
+    real = node.tick
+
+    def tick():
+        t0 = time.perf_counter()
+        try:
+            return real()
+        finally:
+            t1 = time.perf_counter()
+            out.append((t1, t1 - t0))
+    node.tick = tick
+
+
+def _tick_times(tick_log: dict, lo: float, hi: float) -> str:
+    """Each node's ticks that ended in [lo, hi]: count, p50 and max."""
+    parts = []
+    for nid, rec in sorted(tick_log.items()):
+        d = [dt for t, dt in list(rec) if lo <= t <= hi]
+        parts.append(f"node{nid} {len(d)} ticks, p50 "
+                     f"{_quantile(d, 0.5) * 1e3:.0f} ms, max "
+                     f"{max(d) * 1e3:.0f} ms" if d else f"node{nid} 0 ticks")
+    return "; ".join(parts)
+
+
+def _api_health(nodes, idx: np.ndarray, now0: dict) -> list:
+    """One line per node on its leaders' peer health, read from the
+    step's lanes: the groups it leads, of them not ready, and for each
+    peer the led groups that peer is unhealthy in for a timeout within
+    recovery_ticks, for a fail streak past avail_crit or for no reply yet,
+    the led (group, peer) pairs that timed out since the node's tick
+    ``now0[node]``, and the largest fail streak.  Last, the groups that
+    are not ready by the node that leads them."""
+    from rafting_tpu_torch import LEADER, NIL
+    lines = []
+    lead_of = np.full(idx.size, -1)
+    best = np.full(idx.size, -1)
+    not_ready = np.ones(idx.size, bool)
+    for n in nodes:
+        s = n.state
+        now = int(s.now.reshape(-1)[0])
+        fenced = (s.xfer_to[0, idx] != NIL).cpu().numpy()
+        snap = s.need_snap[0, idx].cpu().numpy()
+        fa = s.fail_at[0, idx].cpu().numpy()
+        fs = s.fail_streak[0, idx].cpu().numpy()
+        ok = s.ok_at[0, idx].cpu().numpy()
+        role, ready, term = n.h_role[idx], n.h_ready[idx], n.h_term[idx]
+        led = role == LEADER
+        nr = led & ~ready
+        mine = led & (term > best)
+        lead_of[mine], best[mine] = n.node_id, term[mine]
+        not_ready[led & ready] = False
+        cfg = n.cfg
+        peers = []
+        for p in range(cfg.n_peers):
+            if p == n.node_id:
+                continue
+            recent = (fa[:, p] > 0) & (now - fa[:, p] < cfg.recovery_ticks)
+            streak = fs[:, p] > cfg.avail_crit
+            silent = ok[:, p] == 0
+            since = fa[:, p] >= now0.get(n.node_id, now)
+            peers.append(
+                f"peer{p}: recent timeout {int((led & recent).sum())} "
+                f"({int((nr & recent).sum())} not ready), streak "
+                f"{int((led & streak).sum())} ({int((nr & streak).sum())}), "
+                f"no reply {int((led & silent).sum())} "
+                f"({int((nr & silent).sum())}), timed out since "
+                f"{int((led & since).sum())}, fail_streak max "
+                f"{int(fs[led, p].max(initial=0))}")
+        h = n.health
+        lines.append(
+            f"node{n.node_id} (tick {now}) leads {int(led.sum())}, "
+            f"{int(nr.sum())} not ready ({int((nr & fenced).sum())} in a "
+            f"leadership transfer, {int((nr & snap.any(axis=1)).sum())} "
+            f"with a peer needing a snapshot); evacuations "
+            f"{int(n.metrics['leader_evacuations'])}, self score "
+            f"{h._decayed(h.self_score) if h else 0.0:.2f}; "
+            + "; ".join(peers))
+    lines.append("not ready by leader: " + ", ".join(
+        f"node{k} {int((not_ready & (lead_of == k)).sum())}"
+        for k in sorted({n.node_id for n in nodes})) +
+        f", no leader {int((lead_of < 0).sum())}")
+    return lines
+
+
 def _qc_device_us(trace: str) -> tuple:
     """Mean device time of the quorum kernel's launches, their count, and
     the kernels' share of the window, from a chrome trace."""
@@ -1442,6 +1621,11 @@ def phase_api_1k() -> dict:
                                  "lanes")
         lane_of = lanes[0]
         idx = np.array(lane_of)
+        tick_log = {c.node.node_id: [] for c in cs}
+        for c in cs:
+            _record_ticks(c.node, tick_log[c.node.node_id])
+        # The last wave's start: its wall time and each node's tick clock.
+        last_wave = {"t": time.perf_counter(), "now": {}}
 
         def led_ready() -> float:
             """The share of the groups with a ready leader."""
@@ -1533,17 +1717,38 @@ def phase_api_1k() -> dict:
             ready = led_ready()
             ticks0 = [c.node.ticks for c in cs]
             waited_ticks = 0
+            nodes = [c.node for c in cs]
+            if ready < 1.0:
+                for line in _api_health(nodes, idx, last_wave["now"]):
+                    log(f"[api-1k]   {label} wave {w} wait begins: {line}")
+
+            def wait_lines(what: str) -> None:
+                now = time.perf_counter()
+                log(f"[api-1k]   {label} wave {w} {what}: ticks advanced "
+                    f"{[c.node.ticks - t for c, t in zip(cs, ticks0)]}; "
+                    f"ticks over the wait: {_tick_times(tick_log, tr, now)}"
+                    f"; over the last wave: "
+                    f"{_tick_times(tick_log, last_wave['t'], tr)} "
+                    f"({_CARD[0]})")
             while led_ready() < 1.0:
                 waited_ticks = min(c.node.ticks - t for c, t in
                                    zip(cs, ticks0))
                 if waited_ticks > API_READY_TICKS:
+                    share = led_ready()
+                    wait_lines("wait failed")
+                    for line in _api_health(nodes, idx, last_wave["now"]):
+                        log(f"[api-1k]   {label} wave {w} wait failed: "
+                            f"{line}")
                     raise AssertionError(
-                        f"{label} wave {w}: {led_ready():.1%} of the groups "
+                        f"{label} wave {w}: {share:.1%} of the groups "
                         f"had a ready leader {waited_ticks} ticks after the "
                         f"last wave (limit {API_READY_TICKS})")
                 time.sleep(0.05)
             waited = time.perf_counter() - tr
+            wait_lines("wait ended")
             tw = time.perf_counter()
+            last_wave.update(t=tw, now={n.node_id: int(n.state.now[0])
+                                        for n in nodes})
             st = wave(w)
             served = (st["set"] > 0) & st["get"]
             share = (float(served.mean()), float(served[st["fwd"]].mean()))
@@ -1622,6 +1827,8 @@ def phase_api_1k() -> dict:
             ticks[c.node.node_id] = (
                 h.total / max(h.n, 1), h.quantile(0.99),
                 {k: v["mean"] for k, v in c.node.metrics.breakdown().items()})
+        log(f"[api-1k] node ticks over the measured waves: "
+            f"{_tick_times(tick_log, t0, t0 + secs)} ({_CARD[0]})")
 
         # A window holding one whole node tick of container 0 (the two
         # other nodes tick in it too) under torch.profiler.
@@ -1661,6 +1868,7 @@ def phase_api_1k() -> dict:
             raise AssertionError(f"snapshots taken in the window: {snaps}")
         node0 = cs[0].node
         peak = torch.cuda.max_memory_allocated()
+        replayed = sum(c.node._stepper.replays for c in cs)
         for c in cs:
             c.destroy()
         # The three loops have stopped: every node tick launched the
@@ -1706,7 +1914,8 @@ def phase_api_1k() -> dict:
             f"nodes; linz.check ok on {len(histories)} sampled groups "
             f"({sum(len(h.ops()) for h in histories.values())} ops); "
             f"snapshots_taken 0; {launches} quorum_commit launches in "
-            f"{all_ticks} node ticks of the three containers; profiled "
+            f"{all_ticks} node ticks of the three containers ({replayed} "
+            f"of them in replays of a captured node_step); profiled "
             f"window (one whole tick of container 0): qc_kernel "
             f"{qc_us:.2f} us device time per launch over {qc_n} launches, "
             f"kernels busy {busy:.1%} of the window; {_kernel_line(kern)}; "

@@ -20,6 +20,7 @@ meaning (the legacy fixed-majority baseline, plain torch).
 
 from __future__ import annotations
 
+import contextlib
 import struct
 import threading
 
@@ -31,10 +32,14 @@ _I32_MAX = (1 << 31) - 1
 # Kernel launches, counted where each wrapper launches its kernel, and of
 # those the launches that took the kernel's strided path (an operand not
 # dense in [N, G(, P)] order).  Several nodes tick from their own threads
-# in one process, so the counts take a lock.
+# in one process, so the counts take a lock.  While a thread captures a
+# CUDA graph its launches run nowhere: the wrapper records them in the
+# thread's list instead (recording_launches), and each replay of the
+# graph counts them (count_replay).
 launch_counts = {"quorum_commit": 0}
 strided_launches = {"quorum_commit": 0}
 _count_lock = threading.Lock()
+_recording = threading.local()
 
 
 def reset_launch_counts() -> None:
@@ -45,9 +50,36 @@ def reset_launch_counts() -> None:
 
 
 def _count_launch(name: str, strided: bool = False) -> None:
+    rec = getattr(_recording, "launches", None)
+    if rec is not None:
+        rec.append((name, bool(strided)))
+        return
     with _count_lock:
         launch_counts[name] += 1
         strided_launches[name] += bool(strided)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside the block, this thread's launches are recorded in the
+    yielded list of ``(name, strided)`` instead of counted: the block
+    captures a CUDA graph, and nothing it enqueues runs then."""
+    prev = getattr(_recording, "launches", None)
+    rec: list = []
+    _recording.launches = rec
+    try:
+        yield rec
+    finally:
+        _recording.launches = prev
+
+
+def count_replay(launches) -> None:
+    """Count the launches a replayed graph holds (the list that
+    ``recording_launches`` gave its capture)."""
+    with _count_lock:
+        for name, strided in launches:
+            launch_counts[name] += 1
+            strided_launches[name] += strided
 
 
 def _bits(mask: torch.Tensor, P: int) -> torch.Tensor:

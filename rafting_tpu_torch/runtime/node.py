@@ -44,11 +44,10 @@ import torch
 
 from concurrent.futures import ThreadPoolExecutor
 
-from ..core.step import node_step
 from ..core.types import (
-    I32_SAFE_MAX, LEADER, NIL, EngineConfig, HostInbox, Messages,
-    StepInfo, boot_conf_word as _boot_conf_word, resolve_device,
-    stack_states, tree_map,
+    I32_SAFE_MAX, LEADER, NIL, EngineConfig, StepInfo,
+    boot_conf_word as _boot_conf_word, resolve_device, stack_states,
+    tree_map,
 )
 from ..log.store import LogStore, restore_raft_state
 from ..machine.dispatch import ApplyDispatcher
@@ -65,6 +64,7 @@ from ..api.anomaly import (
     StorageFaultError, UnavailableError, as_refusal,
 )
 from .admission import admission_from_env
+from .step_graph import NodeStepper, to_host
 from .txn import txn_plane_from_env
 from ..log.wal import WalNoSpace, WalSyncError
 from ..utils.health import health_from_env
@@ -85,9 +85,8 @@ _NOOP_LENS = np.zeros(1, np.uint32)
 
 # The device seam.  The node keeps its engine state with the step's
 # explicit node axis at N = 1 (core/step.py); every host read takes row 0
-# and every host->device copy adds the axis, here and nowhere else.
-_NP_OF = {torch.bool: np.bool_, torch.int32: np.int32}
-_TORCH_OF = {np.dtype(v): k for k, v in _NP_OF.items()}
+# and every host->device copy adds the axis, here and in the step's
+# buffers and packed read-back (runtime/step_graph.py) and nowhere else.
 
 
 def _host_lane(t: torch.Tensor) -> np.ndarray:
@@ -95,51 +94,12 @@ def _host_lane(t: torch.Tensor) -> np.ndarray:
     return np.array(t[0].cpu())
 
 
-def _to_device(dicts, device: torch.device):
-    """Host arrays -> tensors on ``device`` with the node axis (N = 1),
-    through ONE host->device copy of a packed buffer.  On the card the
-    buffer is pinned and the copy non-blocking, so a pipelined tick does
-    not wait here for the step still in flight.  Lanes are packed widest
-    dtype first so every view stays aligned."""
-    items = sorted(((i, k, a) for i, d in enumerate(dicts)
-                    for k, a in d.items()),
-                   key=lambda it: -it[2].dtype.itemsize)
-    flat = torch.from_numpy(np.concatenate(
-        [np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-         for _, _, a in items]))
-    if device.type == "cuda":
-        flat = flat.pin_memory()
-    buf = flat.to(device, non_blocking=True)
-    out = [{} for _ in dicts]
-    off = 0
-    for i, k, a in items:
-        out[i][k] = buf[off:off + a.nbytes].view(_TORCH_OF[a.dtype]) \
-            .reshape((1,) + a.shape)
-        off += a.nbytes
-    return out
-
-
-def _to_host(trees):
-    """Row 0 of every tensor leaf of ``trees`` (state containers, tensors
-    or None) as numpy, in containers of the same structure, through ONE
-    device->host copy — the tick's one blocking point."""
-    leaves: list = []
-    for t in trees:
-        tree_map(leaves.append, t)
-    order = sorted(range(len(leaves)),
-                   key=lambda i: -leaves[i].element_size())
-    flat = torch.cat([leaves[i][0].contiguous().view(-1).view(torch.uint8)
-                      for i in order]).cpu().numpy()
-    host: list = [None] * len(leaves)
-    off = 0
-    for i in order:
-        t = leaves[i]
-        n = t[0].numel() * t.element_size()
-        host[i] = flat[off:off + n].view(_NP_OF[t.dtype]).reshape(
-            t.shape[1:])
-        off += n
-    it = iter(host)
-    return [tree_map(lambda _: next(it), t) for t in trees]
+def _fetch_trees(state, outbox, info) -> tuple:
+    """What ``_fetch`` reads back after a step, in its order: the step
+    info, the outbox and the state lanes the host mirrors."""
+    return (info, outbox, state.term, state.voted_for, state.role,
+            state.leader_id, state.commit, state.log.base,
+            state.log.base_term, state.heat)
 
 
 def _reset_lanes(t: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
@@ -310,6 +270,9 @@ class _TickCtx:
         # device refs (dispatch) -> host arrays (fetch)
         "info", "outbox", "term", "voted", "role", "leader", "commit",
         "base", "base_term", "heat",
+        # The fetched lanes above packed on the device by the step (one
+        # uint8 tensor, ``_fetch_trees``'s order).
+        "packed",
         # Eager-send bookkeeping (pipelined mode): per-peer AE columns
         # whose payloads were not staged at fetch time — the host phase
         # packs exactly these after the barrier.  None = pipeline off
@@ -492,6 +455,11 @@ class RaftNode:
             state = state.replace(active=torch.as_tensor(
                 np.asarray(initial_active, bool), device=self.device))
         self.state = stack_states([state])
+        # node_step at N = 1 on static buffers, replayed as one CUDA graph
+        # on the card; the CPU runs the same buffers uncaptured
+        # (runtime/step_graph.py).
+        self._stepper = NodeStepper(cfg, self.device, _fetch_trees,
+                                    capture=self.device.type == "cuda")
         self._recover_machines()
         self.h_active = _host_lane(self.state.active)
 
@@ -966,6 +934,10 @@ class RaftNode:
             except Exception:
                 log.exception("node %d: pipeline drain failed on close",
                               self.node_id)
+        if self._thread is None or not self._thread.is_alive():
+            # The step's graphs and buffers go now, not when the collector
+            # reaches this node (a tick thread still running keeps them).
+            self._stepper.close()
         if self._lat is not None:
             # Final harvest: retired-but-unmerged spans land in the
             # histograms before the registry goes quiet (spans still in
@@ -1630,8 +1602,8 @@ class RaftNode:
                     self._reject_membership(g, exc_f())
                 if purge:
                     purged.append(g)
-            (dev,) = _to_device([{"active": act}], self.device)
-            self.state = self.state.replace(active=dev["active"])
+            self.state = self.state.replace(active=torch.tensor(
+                act[None], device=self.device))
             self.h_active = act
             if purged:
                 self._purge_lanes(purged)
@@ -1738,12 +1710,13 @@ class RaftNode:
 
         # -- 2. network inbox ------------------------------------------------
         arrays, staged_payloads = self.acc.drain()
-        host_dev, inbox_dev = _to_device([host_lanes, arrays], self.device)
-        host = HostInbox(**host_dev)
-        inbox = Messages(**inbox_dev)
 
         # -- 3. device step (async dispatch: no transfer, no block) ----------
-        self.state, outbox, info = node_step(cfg, self.state, inbox, host)
+        # One packed host->device copy of both inboxes, then the step (a
+        # graph replay on the card); the state it returns is carried in
+        # place, so it is read back before the next dispatch.
+        self.state, outbox, info, packed = self._stepper.step(
+            self.state, host_lanes, arrays)
 
         ctx = _TickCtx()
         ctx.submit_n, ctx.read_n = submit_n, read_n
@@ -1754,6 +1727,7 @@ class RaftNode:
         ctx.commit = self.state.commit
         ctx.base, ctx.base_term = self.state.log.base, self.state.log.base_term
         ctx.heat = self.state.heat
+        ctx.packed = packed
         ctx.deferred_ae = None
         self._inflight_submit = self._inflight_submit + submit_n
         self._inflight_read = self._inflight_read + read_n
@@ -1772,9 +1746,11 @@ class RaftNode:
         # One transfer for everything the host needs this tick (the heat
         # lanes ride it as a None subtree when cfg.heat is off).
         (h_info, h_out, h_term, h_voted, h_role, h_leader, h_commit, h_base,
-         h_base_term, h_heat) = _to_host(
+         h_base_term, h_heat) = to_host(
             (ctx.info, ctx.outbox, ctx.term, ctx.voted, ctx.role,
-             ctx.leader, ctx.commit, ctx.base, ctx.base_term, ctx.heat))
+             ctx.leader, ctx.commit, ctx.base, ctx.base_term, ctx.heat),
+            ctx.packed)
+        ctx.packed = None
         self.metrics.observe("tick_stage_scan_wait_s",
                              time.perf_counter() - _w0)
         ctx.info, ctx.outbox = h_info, h_out
@@ -1841,7 +1817,7 @@ class RaftNode:
         if cfg.trace_depth:
             h_trn = _host_lane(self.state.trace.n)
             if self.tracelog.moved(h_trn):
-                (h_trace,) = _to_host((self.state.trace,))
+                (h_trace,) = to_host((self.state.trace,))
                 for k, v in self.tracelog.ingest(h_trace).items():
                     if v:
                         self.metrics[k] += v
@@ -3166,7 +3142,7 @@ class RaftNode:
         """Leader-side replication lag of one peer: ``last - match``
         (0 = fully caught up).  An admin-cadence device read — the
         rebalancer polls it to decide when a learner is promotable."""
-        last, match = _to_host(
+        last, match = to_host(
             (self.state.log.last[:, group],
              self.state.match_idx[:, group, peer]))
         return max(0, int(last) - int(match))

@@ -16,6 +16,14 @@ the survivors, submit again; restart the killed node from its WAL and
 drain.  At the end every cluster's machine files are compared byte for
 byte.
 
+With ``lanes=True`` each round also holds every node's whole engine state
+and the step info and outbox of its last tick equal across the clusters,
+exactly (a port node's node axis of 1 is dropped; the PRNG key compares
+as integers).  Snapshot downloads and checkpoints run on worker threads
+and their results reach the tick at the next round after they finish, so
+then each cluster waits for them after its tick, and all see them at the
+same round.
+
 Two host planes decide from wall-clock time: admission control (queue
 sojourn) and the health plane (fsync latency → leadership evacuation).
 Two clusters in one process see different times, so a loaded host can
@@ -27,7 +35,9 @@ the script inside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
+import time
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -61,13 +71,103 @@ def mirrors(cluster) -> Dict[int, Dict[str, np.ndarray]]:
             for i, n in sorted(cluster.nodes.items())}
 
 
-class Lockstep:
-    """Tick several clusters together and hold their mirrors equal."""
+def _numpy(a) -> np.ndarray:
+    if hasattr(a, "detach"):
+        a = a.detach().cpu()
+    return np.asarray(a)
 
-    def __init__(self, clusters: Sequence):
+
+def _copy_tree(tree):
+    """A container of host arrays, copied (a later tick may reuse them)."""
+    return type(tree)(**{f.name: (None if getattr(tree, f.name) is None
+                                  else np.array(getattr(tree, f.name)))
+                         for f in dataclasses.fields(tree)})
+
+
+def same_lanes(a, b, path: str) -> None:
+    """Two containers of the same fields (either engine's state, step
+    info or outbox), leaf by leaf, exactly.  A leading node axis of 1 on
+    one side only is dropped."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        where = f"{path}.{f.name}"
+        if x is None or y is None:
+            assert x is None and y is None, f"{where}: only one side is None"
+        elif dataclasses.is_dataclass(x):
+            same_lanes(x, y, where)
+        else:
+            x, y = _numpy(x), _numpy(y)
+            if x.ndim == y.ndim + 1 and x.shape[0] == 1:
+                x = x[0]
+            elif y.ndim == x.ndim + 1 and y.shape[0] == 1:
+                y = y[0]
+            if x.shape != y.shape:
+                raise AssertionError(f"{where}: shape {x.shape} vs "
+                                     f"{y.shape}")
+            x, y = x.astype(np.int64), y.astype(np.int64)
+            if not np.array_equal(x, y):
+                at = tuple(np.argwhere(x != y)[0])
+                raise AssertionError(
+                    f"{where} differs in {int((x != y).sum())} lane(s), "
+                    f"first at {at}: {x[at]} vs {y[at]}")
+
+
+def _record_fetches(cluster) -> dict:
+    """node id -> copies of the step info and outbox its last tick
+    fetched, for every node of ``cluster``, restarts included."""
+    last: dict = {}
+
+    def hook(node):
+        real = node._fetch
+
+        def _fetch(ctx):
+            real(ctx)
+            last[node.node_id] = (_copy_tree(ctx.info),
+                                  _copy_tree(ctx.outbox))
+        node._fetch = _fetch
+
+    real_start = cluster.start_node
+
+    def start_node(i):
+        node = real_start(i)
+        hook(node)
+        return node
+    cluster.start_node = start_node
+    for n in cluster.nodes.values():
+        hook(n)
+    return last
+
+
+def quiesce(cluster, timeout: float = 60.0) -> None:
+    """Wait until no node of ``cluster`` has a snapshot download or a
+    checkpoint in flight."""
+    deadline = time.monotonic() + timeout
+    for n in cluster.nodes.values():
+        while True:
+            with n._snap_cv:
+                busy = bool(n._snap_inflight)
+            with n._ckpt_cv:
+                done = {d[0] for d in n._ckpt_done}
+                busy |= not n._ckpt_inflight <= done
+            if not busy:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"node {n.node_id}: snapshot or "
+                                     f"checkpoint workers busy for "
+                                     f"{timeout:.0f}s")
+            time.sleep(0.002)
+
+
+class Lockstep:
+    """Tick several clusters together and hold their mirrors equal (and,
+    with ``lanes=True``, every node's state, step info and outbox)."""
+
+    def __init__(self, clusters: Sequence, lanes: bool = False):
         assert len(clusters) >= 1
         self.clusters = list(clusters)
         self.rounds = 0
+        self.fetched = [_record_fetches(c) for c in self.clusters] \
+            if lanes else None
 
     @property
     def lead(self):
@@ -91,12 +191,27 @@ class Lockstep:
                             f"{int(bad[0])}: {int(a[bad[0]])} vs "
                             f"{int(b[bad[0]])}")
 
+    def check_lanes(self) -> None:
+        ref = self.lead
+        for k, c in enumerate(self.clusters[1:], 1):
+            for i, n in sorted(c.nodes.items()):
+                at = f"round {self.rounds}: cluster {k} node {i}"
+                same_lanes(n.state, ref.nodes[i].state, f"{at} state")
+                (info, out), (rinfo, rout) = (self.fetched[k][i],
+                                              self.fetched[0][i])
+                same_lanes(info, rinfo, f"{at} info")
+                same_lanes(out, rout, f"{at} outbox")
+
     def tick(self, rounds: int = 1) -> None:
         for _ in range(rounds):
             for c in self.clusters:
                 c.tick()
+                if self.fetched is not None:
+                    quiesce(c)
             self.rounds += 1
             self.check()
+            if self.fetched is not None:
+                self.check_lanes()
 
     def tick_until(self, pred, max_rounds: int, what: str) -> None:
         for _ in range(max_rounds):
@@ -175,12 +290,13 @@ def machine_bytes(cluster) -> Dict[tuple, bytes]:
 
 
 def run_script(clusters: Sequence, n_submit: int = 2,
-               drain_rounds: int = 40, max_rounds: int = 600) -> dict:
+               drain_rounds: int = 40, max_rounds: int = 600,
+               lanes: bool = False) -> dict:
     """Run the scripted scenario on ``clusters`` in lockstep (see the
     module docstring).  Returns ``{"rounds", "victim", "acked",
     "files"}``; raises AssertionError at the first round where the
     clusters differ, or if any phase does not finish."""
-    ls = Lockstep(clusters)
+    ls = Lockstep(clusters, lanes=lanes)
     ls.check()
     ls.tick_until(ls.all_led_ready, max_rounds, "every group led and ready")
     acked = ls.submit_all("a", n_submit)

@@ -21,7 +21,7 @@ without cProfile, therefore samples the tick thread's stack every
 by the method it was in (``_dispatch``, ``_fetch``, ``_host_phase``, ...)
 and the two package frames below it: the per-tick time outside the
 named stages, which ``_host_phase`` (wal, fsync, send, apply, reads,
-maintain) and ``_fetch``'s ``_to_host`` (scan_wait) make up, is the
+maintain) and ``_fetch``'s ``to_host`` (scan_wait) make up, is the
 rest.  Printed as ``[tick split]`` lines and saved as the artifact's
 ``tick_split`` phase.
 """
@@ -43,6 +43,10 @@ SAMPLE_S = 0.002
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BENCH = os.path.join(_PKG, "tools", "bench_runtime.py")
 _NODE = os.path.join(_PKG, "runtime", "node.py")
+# The step's buffer carrying (runtime/step_graph.py) is left out of the
+# chains: below _dispatch they name node_step itself where it runs
+# uncaptured, and a graph replay counts to _dispatch.
+_STEP_GRAPH = os.path.join(_PKG, "runtime", "step_graph.py")
 
 
 def top_rows(stats: pstats.Stats, key: str, n: int = TOP_N) -> list:
@@ -83,7 +87,8 @@ def _chain(frame):
         if at is None:
             return None
         below = below[at + 1:]
-    names = [c.co_name for c in below if c.co_filename.startswith(_PKG)]
+    names = [c.co_name for c in below if c.co_filename.startswith(_PKG)
+             and c.co_filename != _STEP_GRAPH]
     return (stack[root].co_name.replace("tick_round", "tick"),
             *names[:3])
 

@@ -15,7 +15,9 @@ def test_leader_isolate_recovers_with_check_quorum(tmp_path, monkeypatch):
         "--seed", "7", "--ticks", "100",
         "--nemesis", "leader-isolate", "--isolate-period", "20"])
     ok, doc, _ = chaos_run.soak(args)
-    assert ok, doc["verdict"]
+    # On a failure, the verdict, the recovery window and the step-downs.
+    assert ok, (doc["verdict"], doc["recovery_windows"],
+                doc["checkquorum_stepdowns"])
     assert doc["checkquorum_stepdowns"] >= 1
     windows = doc["recovery_windows"]
     assert len(windows) == 1 and windows[0]["recovered"], windows

@@ -344,3 +344,38 @@ def test_loopback_forwards_chain_the_leaders_future(tmp_path):
     assert ts[0].forward_async(1, 0, b"x").result(timeout=1) == \
         (False, b"peer down")
     ts[0].close()
+
+
+class _Leaderless(_Node):
+    """A node that knows no leader for the lane (it was cut off)."""
+
+    def leader_hint(self, lane):
+        return None
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_a_chase_with_no_leader_gives_up_as_the_reference_does(pkg):
+    """A forward with no leader to go to sends nothing, and once its
+    budget is spent the operation fails with a NotLeaderError that is
+    not marked as a refusal, in the port as in the reference (which a
+    client then records as of unknown outcome, though the operation is
+    in no log: a fault of the reference that the port keeps)."""
+    if pkg == "jax":
+        from rafting_tpu.api.anomaly import is_refusal
+        from rafting_tpu.api.stub import RaftStub as Stub
+        transport = _BlockingTransport()
+    else:
+        from rafting_tpu_torch.api.anomaly import is_refusal
+        Stub = RaftStub
+        transport = _AsyncTransport()
+    node = _Leaderless(transport)
+    stub = Stub(_Container(node), "g", 1)
+    try:
+        fut = stub.submit("x", timeout=0.3)
+        exc = fut.exception(timeout=10)
+        assert type(exc).__name__ == "NotLeaderError"
+        assert not is_refusal(exc)
+        assert getattr(transport, "calls", 0) == 0
+    finally:
+        if pkg == "port":
+            transport._reactor.close()
