@@ -57,7 +57,8 @@ no result line):
              through leaders, kill the node leading group 0, re-elect,
              submit, restart it from its WAL, drain), with the durable
              pipeline off and then on.  h_role/h_term/h_commit/h_leader
-             of every node equal at every round; machine files byte-equal.
+             of every node equal at every round; machine files byte-equal;
+             every node's state at the reference's [G] lane shapes.
              Then the same script on two pipelined clusters on the card,
              one whose nodes replay node_step as a CUDA graph (the
              default, runtime/step_graph.py) and one whose nodes run the
@@ -65,6 +66,9 @@ no result line):
              before its first tick): every lane of every
              node's state, step info and outbox equal after every round;
              the replayed nodes replayed and the others captured nothing;
+             after every round each node's state is its step's [G] views
+             at the reference's shapes, and no step copied a leaf into
+             its static state (the script replaces none);
              at the default config and with the flight recorder, heat
              lanes, CheckQuorum and debug checks on.
 9. runtime — BASELINE.json configs[2] (10k groups, PreVote, randomized
@@ -296,7 +300,7 @@ def phase_build() -> None:
     _build.load("quorum_commit")
     info = _build.build_info["quorum_commit"]
     # ptxas -v: each entry's registers and spill bytes, for the kernel at
-    # P = 3 and 5 and for the first design it is timed against.
+    # P = 3, 5 and 6 and for the first design it is timed against.
     regs, fn = {}, None
     for ln in info["log"].splitlines():
         if "Compiling entry function" in ln:
@@ -305,7 +309,7 @@ def phase_build() -> None:
             regs[fn] = f"{regs.get(fn, '')} {ln.split(':')[-1].strip()}"
     show = [f"{k}: {v}" for k, v in sorted(regs.items())
             if any(t in k for t in ("qc_kernelILi3E", "qc_kernelILi5E",
-                                    "qc_kernel_v1ILi3E"))]
+                                    "qc_kernelILi6E", "qc_kernel_v1ILi3E"))]
     log(f"[build] quorum_commit built in {info['seconds']:.2f}s "
         f"(load {time.perf_counter() - t0:.2f}s); ptxas: "
         f"{' | '.join(show) or info['log'][-400:]}")
@@ -862,6 +866,39 @@ def phase_nemesis() -> dict:
     return kern
 
 
+def _state_table(cfg) -> dict:
+    """path -> (shape, dtype) of every leaf of one node's engine state at
+    ``[G]`` lanes for ``cfg``: ``init_state``'s, the shapes of the
+    reference's ``RaftNode.state`` (the port's CPU tests hold the two
+    equal leaf for leaf)."""
+    from rafting_tpu_torch.core.types import init_state
+    return _leaf_shapes(init_state(cfg, 0, device="cpu"))
+
+
+def _leaf_shapes(tree, path="state") -> dict:
+    out = {}
+    for f in dataclasses.fields(tree):
+        v, where = getattr(tree, f.name), f"{path}.{f.name}"
+        if dataclasses.is_dataclass(v):
+            out.update(_leaf_shapes(v, where))
+        else:
+            out[where] = None if v is None else (tuple(v.shape), v.dtype)
+    return out
+
+
+def _check_state_shapes(cluster, table: dict, where: str) -> int:
+    """Hold every live node's ``state`` to ``table``; the nodes checked."""
+    for i, n in sorted(cluster.nodes.items()):
+        got = _leaf_shapes(n.state)
+        if got != table:
+            bad = sorted(k for k in table if got.get(k) != table[k])
+            raise AssertionError(
+                f"{where}: node {i}'s state leaves differ from the "
+                f"reference's [G] shapes: " + "; ".join(
+                    f"{k} {got.get(k)} vs {table[k]}" for k in bad[:4]))
+    return len(cluster.nodes)
+
+
 def phase_runtime_parity() -> None:
     import tempfile
     from rafting_tpu_torch import EngineConfig, LocalCluster
@@ -869,6 +906,7 @@ def phase_runtime_parity() -> None:
     cfg = EngineConfig(n_groups=64, n_peers=3, log_slots=32, batch=4,
                        max_submit=4, election_ticks=10, heartbeat_ticks=3,
                        rpc_timeout_ticks=8)
+    table = _state_table(cfg)
     for pipeline in (False, True):
         with tempfile.TemporaryDirectory() as root, pinned_env():
             t0 = time.perf_counter()
@@ -876,6 +914,8 @@ def phase_runtime_parity() -> None:
                                device=d) for d in ("cuda", "cpu")]
             try:
                 r = run_script(cl)
+                for c, d in zip(cl, ("cuda", "cpu")):
+                    _check_state_shapes(c, table, f"pipeline={pipeline} {d}")
             finally:
                 for c in cl:
                     c.close()
@@ -883,8 +923,9 @@ def phase_runtime_parity() -> None:
             f"on CUDA == on CPU at every one of {r['rounds']} rounds "
             f"(killed node {r['victim']}, {len(r['acked'])} acknowledged "
             f"submissions), machine files byte-equal "
-            f"({sum(len(b) for b in r['files'].values())} bytes); "
-            f"{time.perf_counter() - t0:.1f}s")
+            f"({sum(len(b) for b in r['files'].values())} bytes); every "
+            f"node's state at the reference's [G] shapes ({len(table)} "
+            f"leaves); {time.perf_counter() - t0:.1f}s")
     # The node's step replayed as a CUDA graph (the card's default,
     # runtime/step_graph.py) against the same step run uncaptured (each
     # node's capture switched off before its first tick), both on the
@@ -903,6 +944,8 @@ def _graph_parity(label: str, cfg) -> None:
     import tempfile
     from rafting_tpu_torch import LocalCluster
     from rafting_tpu_torch.testkit.lockstep import pinned_env, run_script
+    table = _state_table(cfg)
+    checked = [0]
     with tempfile.TemporaryDirectory() as root, pinned_env():
         t0 = time.perf_counter()
         cl = [LocalCluster(cfg, os.path.join(root, d), device="cuda")
@@ -919,10 +962,16 @@ def _graph_parity(label: str, cfg) -> None:
                 steppers[k].append(n._stepper)
                 return n
 
-            def tick(rounds=1, real=c.tick, k=k):
+            def tick(rounds=1, real=c.tick, k=k, c=c):
                 t = time.perf_counter()
                 real(rounds)
                 spent[k] += time.perf_counter() - t
+                # The [G] shapes, and the node holding the step's views.
+                checked[0] += _check_state_shapes(c, table, label)
+                if any(n.state is not n._stepper.state
+                       for n in c.nodes.values()):
+                    raise AssertionError(f"{label}: a node's state is not "
+                                         f"its step's views")
             c.start_node, c.tick = start_node, tick
         try:
             r = run_script(cl, lanes=True)
@@ -931,11 +980,18 @@ def _graph_parity(label: str, cfg) -> None:
                 c.close()
     caps = [sum(st.captures for st in ss) for ss in steppers]
     reps = [sum(st.replays for st in ss) for ss in steppers]
-    if any(st._layouts or st.state is not None for ss in steppers
-           for st in ss):
+    if any(st._layouts or st.state is not None or st._static is not None
+           for ss in steppers for st in ss):
         raise AssertionError("a closed node still holds its step's graphs "
                              "or buffers")
     replay_s = sum(st.replay_s for st in steppers[1])
+    # The script replaces no lane of any node (no lifecycle write, no
+    # purge), so after each node's first step _adopt copies nothing.
+    copied = [sum(st.copied for st in ss) for ss in steppers]
+    if any(copied):
+        raise AssertionError(f"{label}: _adopt copied {copied} static "
+                             f"leaves (uncaptured, replayed) on ticks where "
+                             f"no node replaced a lane")
     if caps[0] or reps[0] or any(st.capture for st in steppers[0]):
         raise AssertionError(f"the uncaptured cluster captured {caps[0]} "
                              f"graphs and replayed {reps[0]} ticks")
@@ -948,7 +1004,11 @@ def _graph_parity(label: str, cfg) -> None:
         f"{reps[1]} replays) == uncaptured, on every lane of every node's "
         f"state, step info and outbox at every one of {r['rounds']} "
         f"rounds (killed node {r['victim']}, {len(r['acked'])} "
-        f"acknowledged submissions); a round of three node ticks took "
+        f"acknowledged submissions); every node's state at the "
+        f"reference's [G] shapes ({len(table)} leaves) and the step's own "
+        f"views after every round ({checked[0]} node checks); _adopt "
+        f"copied {copied[0]} + {copied[1]} static leaves after the first "
+        f"steps; a round of three node ticks took "
         f"{spent[0] / r['rounds'] * 1e3:.1f} ms uncaptured, "
         f"{spent[1] / r['rounds'] * 1e3:.1f} ms replayed, of which "
         f"{replay_s / max(reps[1], 1) * 1e3:.3f} ms of host time per "
@@ -1508,12 +1568,12 @@ def _api_health(nodes, idx: np.ndarray, now0: dict) -> list:
     not_ready = np.ones(idx.size, bool)
     for n in nodes:
         s = n.state
-        now = int(s.now.reshape(-1)[0])
-        fenced = (s.xfer_to[0, idx] != NIL).cpu().numpy()
-        snap = s.need_snap[0, idx].cpu().numpy()
-        fa = s.fail_at[0, idx].cpu().numpy()
-        fs = s.fail_streak[0, idx].cpu().numpy()
-        ok = s.ok_at[0, idx].cpu().numpy()
+        now = int(s.now)
+        fenced = (s.xfer_to[idx] != NIL).cpu().numpy()
+        snap = s.need_snap[idx].cpu().numpy()
+        fa = s.fail_at[idx].cpu().numpy()
+        fs = s.fail_streak[idx].cpu().numpy()
+        ok = s.ok_at[idx].cpu().numpy()
         role, ready, term = n.h_role[idx], n.h_ready[idx], n.h_term[idx]
         led = role == LEADER
         nr = led & ~ready
@@ -1747,7 +1807,7 @@ def phase_api_1k() -> dict:
             waited = time.perf_counter() - tr
             wait_lines("wait ended")
             tw = time.perf_counter()
-            last_wave.update(t=tw, now={n.node_id: int(n.state.now[0])
+            last_wave.update(t=tw, now={n.node_id: int(n.state.now)
                                         for n in nodes})
             st = wave(w)
             served = (st["set"] > 0) & st["get"]

@@ -79,7 +79,9 @@ def state_to_numpy(state) -> dict:
         elif v is None:
             out[f.name] = None
         else:
-            a = v.detach().cpu().numpy()
+            # A copy: a node's state is views of buffers its next step
+            # overwrites.  A 0-d leaf (``now``) stays 0-d.
+            a = np.array(v.detach().cpu())
             if f.name == _KEY_FIELD:
                 a = a.astype(np.uint32)
             out[f.name] = a

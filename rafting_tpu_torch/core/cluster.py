@@ -8,6 +8,12 @@ connectivity matrix ANDed into every ``*_valid`` mask; the nemesis step
 (:func:`cluster_step_nemesis`) adds crash-restarts, stalls and duplicate
 delivery from one tick of a ``FaultSchedule``, all as masks on the
 device.
+
+Every operand declared as an array (``conn``, ``submit_n``, ``read_n``,
+a ``FaultSchedule``'s masks) also takes a numpy array, as the JAX
+functions do: the public entry converts it once (``as_lanes``), onto the
+device of the cluster state, and a tensor already there passes through
+untouched.
 """
 
 from __future__ import annotations
@@ -21,9 +27,10 @@ import torch
 from .shard import Mesh, exchange_messages
 from .step import node_step, raise_debug_violations
 from .types import (
-    I32, LEADER, NIL, EngineConfig, FaultSchedule, HostInbox, Messages,
-    RaftState, StepInfo, conf_learners_of, conf_new_of, conf_voters_of,
-    crash_restart, init_state, resolve_device, stack_states, tree_map,
+    BOOL, I32, LEADER, NIL, EngineConfig, FaultSchedule, HostInbox,
+    Messages, RaftState, StepInfo, as_lanes, conf_learners_of, conf_new_of,
+    conf_voters_of, crash_restart, init_state, resolve_device, stack_states,
+    tree_map,
 )
 
 _VALID_FIELDS = tuple(f.name for f in dataclasses.fields(Messages)
@@ -46,6 +53,7 @@ def route(outboxes: Messages, conn: Optional[torch.Tensor] = None,
     side, then the node shards swap their blocks
     (:func:`~rafting_tpu_torch.core.shard.exchange_messages`).  Masking
     commutes with the swap, so the inboxes are the unsharded ones."""
+    conn = as_lanes(conn, BOOL, outboxes.ae_valid.device)
     if mesh is not None:
         if conn is not None:
             mask = conn.unsqueeze(-1)
@@ -110,6 +118,7 @@ def cluster_step_nemesis(cfg: EngineConfig, states: RaftState,
     On a ``mesh`` the state, messages and ``fault`` are one rank's slice
     (``fault``'s sender rows): a sender needs every destination's
     crash and stall, so the node shards all-gather them once a tick."""
+    fault = as_fault_schedule(fault, states.term.device)
     down = fault.crash | fault.stall                               # [N]
     base, down_all = 0, down
     if mesh is not None:
@@ -158,8 +167,8 @@ def auto_host_inbox(cfg: EngineConfig, states: RaftState,
     dev = states.term.device
     slack = cfg.log_slots // 4
     zero = torch.zeros((N, G), dtype=I32, device=dev)
-    if read_n is None:
-        read_n = zero
+    submit_n = as_lanes(submit_n, I32, dev)
+    read_n = zero if read_n is None else as_lanes(read_n, I32, dev)
     if compact is True:
         ct = torch.clamp(states.commit - slack, min=0)
     elif compact:
@@ -178,6 +187,12 @@ def auto_host_inbox(cfg: EngineConfig, states: RaftState,
         snap_conf=prev_info.snap_req_conf,
         durable_tail=prev_info.log_tail if durable_lag else None,
     )
+
+
+def as_fault_schedule(sched: FaultSchedule, device) -> FaultSchedule:
+    """``sched`` with every mask a bool tensor on ``device`` (numpy masks
+    are copied there once; tensors already there pass through)."""
+    return tree_map(lambda a: as_lanes(a, BOOL, device), sched)
 
 
 def cluster_snapshot(states: RaftState) -> dict:
@@ -220,6 +235,17 @@ class DeviceCluster:
                                                   lead=(N,))
 
     # -- fault injection ----------------------------------------------------
+    @property
+    def conn(self) -> torch.Tensor:
+        """[N, N] bool link mask (``conn[s, d]`` False cuts s->d).  It may
+        be assigned a numpy array, as the JAX cluster's may: it lands on
+        the cluster's device once, here."""
+        return self._conn
+
+    @conn.setter
+    def conn(self, value) -> None:
+        self._conn = as_lanes(value, BOOL, self.device)
+
     def set_partition(self, groups_of_nodes) -> None:
         """Partition the cluster: nodes can only reach their own side."""
         N = self.cfg.n_peers

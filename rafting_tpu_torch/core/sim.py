@@ -17,6 +17,10 @@ then runs its slice of the cluster from ``shard_cluster``, with the full
 config, and the ranks meet only in the collectives of ``route``, the
 nemesis step's crash/stall exchange and the commit total.  The gathered
 result is the unsharded run's, lane for lane.
+
+Each entry point takes ``conn``, ``submit_n``, ``read_n`` and a fault
+schedule's masks as numpy arrays too (the JAX functions do): they are
+converted once, before the loop, onto the cluster state's device.
 """
 
 from __future__ import annotations
@@ -28,13 +32,15 @@ import torch
 import torch.distributed as dist
 
 from . import prng
-from .cluster import auto_host_inbox, cluster_step, cluster_step_nemesis
+from .cluster import (
+    as_fault_schedule, auto_host_inbox, cluster_step, cluster_step_nemesis,
+)
 from .shard import (
     SUBMIT_PSPEC, Mesh, info_pspecs, messages_pspecs, state_pspecs,
 )
 from .types import (
-    EngineConfig, FaultSchedule, Messages, RaftState, StepInfo,
-    resolve_device, tree_map,
+    BOOL, I32, EngineConfig, FaultSchedule, Messages, RaftState, StepInfo,
+    as_lanes, resolve_device, tree_map,
 )
 
 
@@ -44,6 +50,15 @@ def _on_device(states: RaftState, device, mesh: Mesh | None = None
     if states.term.device.type != dev.type:
         raise ValueError(f"cluster state lives on {states.term.device}, "
                          f"the run asked for {dev}")
+
+
+def _operands(states: RaftState, conn, submit_n, read_n=None) -> tuple:
+    """``conn``, ``submit_n`` and ``read_n`` as tensors on the cluster
+    state's device: numpy operands copied there once, before the tick
+    loop; tensors already there pass through."""
+    dev = states.term.device
+    return (as_lanes(conn, BOOL, dev), as_lanes(submit_n, I32, dev),
+            as_lanes(read_n, I32, dev))
 
 
 def _scan_ticks(cfg: EngineConfig, n_ticks: int, states: RaftState,
@@ -73,6 +88,7 @@ def run_cluster_ticks(cfg: EngineConfig, n_ticks: int, states: RaftState,
     ``cfg`` stays the full config and the run is on ``mesh.device``.
     Returns the final ``(states, inflight, info)``."""
     _on_device(states, device, mesh)
+    conn, submit_n, read_n = _operands(states, conn, submit_n, read_n)
     if mesh is not None:
         cfg = mesh.local_config(cfg)
     return _scan_ticks(cfg, n_ticks, states, inflight, prev_info, conn,
@@ -89,6 +105,7 @@ def run_cluster_ticks_reads(cfg: EngineConfig, n_ticks: int,
     The three counters are int64 scalar tensors on the run's device (the
     JAX engine keeps int32 scalars)."""
     _on_device(states, device)
+    conn, submit_n, read_n = _operands(states, conn, submit_n, read_n)
     dev = states.term.device
     served = torch.zeros((), dtype=torch.int64, device=dev)
     lease = torch.zeros((), dtype=torch.int64, device=dev)
@@ -123,9 +140,12 @@ def run_cluster_ticks_nemesis(cfg: EngineConfig, states: RaftState,
     too.  On a ``mesh``, as :func:`run_cluster_ticks`, with the
     schedule's slice from ``shard_fault_schedule``."""
     _on_device(states, device, mesh)
-    if sched.link_up.device.type != states.term.device.type:
+    if isinstance(sched.link_up, torch.Tensor) and \
+            sched.link_up.device.type != states.term.device.type:
         raise ValueError(f"fault schedule lives on {sched.link_up.device}, "
                          f"the cluster state on {states.term.device}")
+    sched = as_fault_schedule(sched, states.term.device)
+    _, submit_n, read_n = _operands(states, None, submit_n, read_n)
     if mesh is not None:
         cfg = mesh.local_config(cfg)
     info = prev_info
@@ -193,6 +213,7 @@ def run_cluster_ticks_blocked(cfg: EngineConfig, n_ticks: int,
     unless ``device`` says otherwise; the state must already live there.
     """
     _on_device(states, device)
+    conn, submit_n, _ = _operands(states, conn, submit_n)
     G = cfg.n_groups
     if group_block >= G:
         return _scan_ticks(cfg, n_ticks, states, inflight, prev_info, conn,
@@ -237,9 +258,10 @@ def committed_entries(states: RaftState, mesh: Mesh | None = None
     after ~21k commits per group).  On a ``mesh``, the whole cluster's
     total on every rank: a MAX over the node shards, then a SUM over the
     group shards."""
+    commit = torch.as_tensor(states.commit)
     if mesh is None:
-        return states.commit.amax(dim=0).to(torch.int64).sum()
-    furthest = mesh.all_reduce(states.commit.amax(dim=0),
+        return commit.amax(dim=0).to(torch.int64).sum()
+    furthest = mesh.all_reduce(commit.amax(dim=0),
                                dist.ReduceOp.MAX, "node")
     return mesh.all_reduce(furthest.to(torch.int64).sum(),
                            dist.ReduceOp.SUM, "group")

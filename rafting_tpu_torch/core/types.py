@@ -643,6 +643,17 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def as_lanes(x, dtype: torch.dtype, device) -> Optional[torch.Tensor]:
+    """``x`` as a tensor of ``dtype`` on ``device``, for the operands an
+    entry point declares as arrays: a numpy array (or a scalar, or a
+    list) is copied there once; a tensor already in place comes back as
+    it is, with no copy and no host synchronisation.  ``None`` stays
+    ``None``."""
+    if x is None:
+        return None
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def stack_states(states) -> RaftState:
     """Stack per-node states along a new leading node axis."""
     return tree_map(lambda *xs: torch.stack(xs), *states)

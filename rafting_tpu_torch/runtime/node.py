@@ -46,8 +46,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 from ..core.types import (
     I32_SAFE_MAX, LEADER, NIL, EngineConfig, StepInfo,
-    boot_conf_word as _boot_conf_word, resolve_device, stack_states,
-    tree_map,
+    boot_conf_word as _boot_conf_word, resolve_device,
 )
 from ..log.store import LogStore, restore_raft_state
 from ..machine.dispatch import ApplyDispatcher
@@ -83,15 +82,16 @@ log = logging.getLogger(__name__)
 # consumers only read it.
 _NOOP_LENS = np.zeros(1, np.uint32)
 
-# The device seam.  The node keeps its engine state with the step's
-# explicit node axis at N = 1 (core/step.py); every host read takes row 0
-# and every host->device copy adds the axis, here and in the step's
-# buffers and packed read-back (runtime/step_graph.py) and nowhere else.
-
 
 def _host_lane(t: torch.Tensor) -> np.ndarray:
-    """Row 0 of one node-axis lane, as a fresh host array."""
-    return np.array(t[0].cpu())
+    """One lane of the node's state, as a fresh host array.
+
+    The device seam.  The node keeps its engine state at [G] lanes, as
+    the reference's does; the step's explicit node axis (core/step.py)
+    lives only in the static buffers of runtime/step_graph.py, whose
+    row-0 views are this state.  A host read copies a lane back: the
+    next step overwrites the buffers the views point into."""
+    return np.array(t.cpu())
 
 
 def _fetch_trees(state, outbox, info) -> tuple:
@@ -103,11 +103,11 @@ def _fetch_trees(state, outbox, info) -> tuple:
 
 
 def _reset_lanes(t: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
-    """A copy of node-axis lane ``t`` with groups ``idx`` set to
-    ``value``: a new tensor, never a write into one that a pipelined
-    tick context may still hold."""
+    """A copy of lane ``t`` with groups ``idx`` set to ``value``: a new
+    tensor, never a write into one that a pipelined tick context may
+    still hold (the step copies it into its static state)."""
     out = t.clone()
-    out[0, idx] = value
+    out[idx] = value
     return out
 
 
@@ -449,15 +449,15 @@ class RaftNode:
         # Crash recovery: device state from the WAL (reference
         # RaftContext.initialize restore order, context/RaftContext.java:
         # 91-113), machines from their newest archived snapshot.
-        state = restore_raft_state(cfg, node_id, self.store, seed=seed,
-                                   device=self.device)
+        self.state = restore_raft_state(cfg, node_id, self.store, seed=seed,
+                                        device=self.device)
         if initial_active is not None:
-            state = state.replace(active=torch.as_tensor(
+            self.state = self.state.replace(active=torch.tensor(
                 np.asarray(initial_active, bool), device=self.device))
-        self.state = stack_states([state])
         # node_step at N = 1 on static buffers, replayed as one CUDA graph
         # on the card; the CPU runs the same buffers uncaptured
-        # (runtime/step_graph.py).
+        # (runtime/step_graph.py).  From the first step on, self.state is
+        # the stepper's [G] views of those buffers.
         self._stepper = NodeStepper(cfg, self.device, _fetch_trees,
                                     capture=self.device.type == "cuda")
         self._recover_machines()
@@ -1603,7 +1603,7 @@ class RaftNode:
                 if purge:
                     purged.append(g)
             self.state = self.state.replace(active=torch.tensor(
-                act[None], device=self.device))
+                act, device=self.device))
             self.h_active = act
             if purged:
                 self._purge_lanes(purged)
@@ -3143,8 +3143,8 @@ class RaftNode:
         (0 = fully caught up).  An admin-cadence device read — the
         rebalancer polls it to decide when a learner is promotable."""
         last, match = to_host(
-            (self.state.log.last[:, group],
-             self.state.match_idx[:, group, peer]))
+            (self.state.log.last[group],
+             self.state.match_idx[group, peer]))
         return max(0, int(last) - int(match))
 
     def _harvest_membership(self, info: StepInfo, h_role) -> None:

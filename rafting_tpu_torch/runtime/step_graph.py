@@ -14,20 +14,25 @@ counterpart of the jitted executable:
 
 * the engine state lives in static tensors that the step overwrites in
   place (its last ops copy the next state into them), so one graph serves
-  every tick;
+  every tick.  ``node_step`` sees them with its explicit node axis, at
+  N = 1 (``[1, G, ...]``); the node holds them as the reference's node
+  holds its state, at ``[G]`` lanes: a tree of ``t[0]`` views built once,
+  when the static state is allocated, so a replay updates what the node
+  holds without a copy, and the node axis never leaves the stepper;
 * the host inbox and the network inbox are packed on the host, widest
   dtype first, and land with ONE host->device copy (pinned,
   non-blocking) in a static buffer that the graph reads through views;
   one graph is captured for each layout of those lanes (the optional
   ``durable_tail`` lane makes two);
-* the outbox and the step info are the graph's own outputs, and so is
-  one uint8 tensor packing what the node reads back (``fetch``): each
-  holds a tick's values until the next ``step``, and the node reads them
-  back, in one device->host copy, before it dispatches again;
-* a tensor that is not one of the static state tensors (the node writes a
-  lane with ``replace``: group lifecycle, lane purges) is copied into its
+* the outbox and the step info are the graph's own outputs (the node
+  gets their row-0 views too), and so is one uint8 tensor packing what
+  the node reads back (``fetch``): each holds a tick's values until the
+  next ``step``, and the node reads them back, in one device->host copy,
+  before it dispatches again;
+* a leaf that is not the stepper's own view (the node replaced it with
+  ``replace``: group lifecycle, lane purges) is copied into row 0 of its
   static tensor before the step runs, so the graph sees every such write
-  without a new capture.
+  without a new capture (``copied`` counts those leaves).
 
 On the card the first step of a stepper runs the body uncaptured (it
 loads the kernel library and warms the allocator), and each later step
@@ -38,8 +43,9 @@ its graph holds (``ops/quorum.py`` ``recording_launches``,
 ``count_replay``), so ``quorum.launch_counts`` still counts launches that
 ran.  A capture that fails raises; nothing runs eagerly in its place.
 On the CPU the same body runs uncaptured every tick: the same buffers,
-copies and order.  ``close`` releases the graphs, their memory and the
-static state at a known point, once the node's tick thread has stopped.
+copies and order.  ``close`` releases the graphs, their memory, the
+static state and its views at a known point, once the node's tick thread
+has stopped.
 """
 
 from __future__ import annotations
@@ -71,7 +77,11 @@ def _leaves(tree) -> list:
     return out
 
 
-def rows_order(trees) -> tuple:
+def _row0(t: torch.Tensor) -> torch.Tensor:
+    return t[0]
+
+
+def pack_order(trees) -> tuple:
     """The tensor leaves of ``trees`` and the order they pack in (widest
     dtype first, so every host view stays aligned)."""
     leaves = [t for tree in trees for t in _leaves(tree)]
@@ -79,30 +89,29 @@ def rows_order(trees) -> tuple:
                           key=lambda i: -leaves[i].element_size())
 
 
-def pack_rows(trees) -> torch.Tensor:
-    """Row 0 of every tensor leaf of ``trees``, as the bytes of one uint8
-    tensor in ``rows_order``: what a node reads back in one copy."""
-    leaves, order = rows_order(trees)
-    return torch.cat([leaves[i][0].contiguous().view(-1).view(torch.uint8)
+def pack_leaves(trees) -> torch.Tensor:
+    """Every tensor leaf of ``trees``, as the bytes of one uint8 tensor in
+    ``pack_order``: what a node reads back in one copy."""
+    leaves, order = pack_order(trees)
+    return torch.cat([leaves[i].contiguous().view(-1).view(torch.uint8)
                       for i in order])
 
 
 def to_host(trees, packed: Optional[torch.Tensor] = None) -> list:
-    """Row 0 of every tensor leaf of ``trees`` (state containers, tensors
-    or None) as numpy, in containers of the same structure, through ONE
+    """Every tensor leaf of ``trees`` (state containers, tensors or None)
+    as numpy, in containers of the same structure, through ONE
     device->host copy: of ``packed`` when the step already packed them
-    (``pack_rows(trees)``), else of their packing here."""
-    leaves, order = rows_order(trees)
+    (``pack_leaves(trees)``), else of their packing here."""
+    leaves, order = pack_order(trees)
     if packed is None:
-        packed = pack_rows(trees)
+        packed = pack_leaves(trees)
     flat = packed.cpu().numpy()
     host: list = [None] * len(leaves)
     off = 0
     for i in order:
         t = leaves[i]
-        n = t[0].numel() * t.element_size()
-        host[i] = flat[off:off + n].view(_NP_OF[t.dtype]).reshape(
-            t.shape[1:])
+        n = t.numel() * t.element_size()
+        host[i] = flat[off:off + n].view(_NP_OF[t.dtype]).reshape(t.shape)
         off += n
     it = iter(host)
     return [tree_map(lambda _: next(it), t) for t in trees]
@@ -137,10 +146,11 @@ class _Layout:
 
 class NodeStepper:
     """``node_step`` at N = 1 for one node: see the module docstring.
-    ``step(state, host_lanes, arrays)`` returns ``(state, outbox, info,
-    packed)``: ``node_step``'s result on those inputs with the node axis
-    (the state is the stepper's static state), and
-    ``pack_rows(fetch(state, outbox, info))``, packed inside the step so
+    ``step(state, host_lanes, arrays)`` takes the node's state at ``[G]``
+    lanes and returns ``(state, outbox, info, packed)``: ``node_step``'s
+    result on those inputs without the node axis (the state is
+    ``self.state``, the views of the static state), and
+    ``pack_leaves(fetch(state, outbox, info))``, packed inside the step so
     that the node reads it back with one copy."""
 
     def __init__(self, cfg, device: torch.device, fetch, capture: bool):
@@ -151,13 +161,15 @@ class NodeStepper:
         self.device = device
         self.fetch = fetch
         self.capture = capture
-        self.state = None            # the static state, after the first step
+        self._static = None          # [1, G] static state, from the first step
+        self.state = None            # its row-0 views: what the node holds
         self._layouts: Dict[tuple, _Layout] = {}
         self._warm = False
         self._stream = torch.cuda.Stream(device) if capture else None
         self.captures = 0            # graphs captured
         self.replays = 0             # ticks that replayed a graph
         self.replay_s = 0.0          # host seconds inside those replays
+        self.copied = 0              # leaves _adopt copied after the first
 
     # -- inputs ---------------------------------------------------------------
 
@@ -182,28 +194,35 @@ class NodeStepper:
         return lay
 
     def _adopt(self, state) -> None:
-        """Make the static state hold ``state``: allocated at the first
-        step, and after that a copy of every lane the node replaced."""
+        """Make the static state hold ``state`` (``[G]`` lanes): allocated
+        from it at the first step, with its row-0 views; after that a copy
+        into row 0 of every leaf the node replaced (a leaf that is not
+        one of those views), and none of the others."""
         if self.state is None:
-            self.state = tree_map(torch.clone, state)
+            self._static = tree_map(
+                lambda t: t.unsqueeze(0).clone(
+                    memory_format=torch.contiguous_format), state)
+            self.state = tree_map(_row0, self._static)
             return
         for mine, given in zip(_leaves(self.state), _leaves(state)):
             if given is not mine:
                 mine.copy_(given)
+                self.copied += 1
 
     # -- the step -------------------------------------------------------------
 
     def _body(self, lay: _Layout) -> tuple:
         """One ``node_step`` on the static buffers: the next state copied
         into the static state, then what the node reads back packed into
-        one tensor (``fetch``).  An output that shares memory with an input
-        (the state it overwrites, or the inbox the next load overwrites) is
-        cloned first, so it keeps this tick's value, as in eager mode."""
+        one tensor (``fetch``), and the row-0 views of the outbox and
+        info.  An output that shares memory with an input (the state it
+        overwrites, or the inbox the next load overwrites) is cloned
+        first, so it keeps this tick's value, as in eager mode."""
         cfg = self.cfg
         new, outbox, info = node_step(
-            cfg, self.state, Messages(**lay.views[1]),
+            cfg, self._static, Messages(**lay.views[1]),
             HostInbox(**lay.views[0]))
-        mine = _leaves(self.state)
+        mine = _leaves(self._static)
         inputs = {_storage(t) for t in mine} | {_storage(lay.buf)}
         keep = lambda t: t.clone() if _storage(t) in inputs else t
         outbox, info = tree_map(keep, outbox), tree_map(keep, info)
@@ -211,7 +230,8 @@ class NodeStepper:
         for m, t in zip(mine, nxt):
             if t is not m:
                 m.copy_(t)
-        return outbox, info, pack_rows(self.fetch(self.state, outbox, info))
+        outbox, info = tree_map(_row0, outbox), tree_map(_row0, info)
+        return outbox, info, pack_leaves(self.fetch(self.state, outbox, info))
 
     def _capture(self, lay: _Layout) -> None:
         graph = torch.cuda.CUDAGraph()
@@ -252,12 +272,13 @@ class NodeStepper:
 
     def close(self) -> None:
         """Release every graph with its outputs and input buffer, and the
-        static state: called by the node once its tick thread has stopped,
-        so the graphs die here and not whenever the garbage collector
-        reaches the closed node.  It waits for the card to finish what
-        was issued, and for any capture in the process to end."""
+        static state with its views: called by the node once its tick
+        thread has stopped, so the graphs die here and not whenever the
+        garbage collector reaches the closed node.  It waits for the card
+        to finish what was issued, and for any capture in the process to
+        end."""
         with _CAPTURE_LOCK:
             if any(lay.graph is not None for lay in self._layouts.values()):
                 torch.cuda.synchronize(self.device)
             self._layouts.clear()
-            self.state = None
+            self._static = self.state = None

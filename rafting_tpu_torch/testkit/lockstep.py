@@ -18,11 +18,13 @@ byte.
 
 With ``lanes=True`` each round also holds every node's whole engine state
 and the step info and outbox of its last tick equal across the clusters,
-exactly (a port node's node axis of 1 is dropped; the PRNG key compares
-as integers).  Snapshot downloads and checkpoints run on worker threads
-and their results reach the tick at the next round after they finish, so
-then each cluster waits for them after its tick, and all see them at the
-same round.
+exactly: shape and value, with the PRNG key compared as integers (the
+port's node holds its state at ``[G]`` lanes, as the reference's does,
+and the step info and outbox the node fetched are host arrays at the
+reference's shapes too).  Snapshot downloads and checkpoints run on
+worker threads and their results reach the tick at the next round after
+they finish, so then each cluster waits for them after its tick, and all
+see them at the same round.
 
 Two host planes decide from wall-clock time: admission control (queue
 sojourn) and the health plane (fsync latency → leadership evacuation).
@@ -86,8 +88,8 @@ def _copy_tree(tree):
 
 def same_lanes(a, b, path: str) -> None:
     """Two containers of the same fields (either engine's state, step
-    info or outbox), leaf by leaf, exactly.  A leading node axis of 1 on
-    one side only is dropped."""
+    info or outbox), leaf by leaf, exactly: a leaf whose shape differs
+    fails."""
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
         where = f"{path}.{f.name}"
@@ -97,10 +99,6 @@ def same_lanes(a, b, path: str) -> None:
             same_lanes(x, y, where)
         else:
             x, y = _numpy(x), _numpy(y)
-            if x.ndim == y.ndim + 1 and x.shape[0] == 1:
-                x = x[0]
-            elif y.ndim == x.ndim + 1 and y.shape[0] == 1:
-                y = y[0]
             if x.shape != y.shape:
                 raise AssertionError(f"{where}: shape {x.shape} vs "
                                      f"{y.shape}")

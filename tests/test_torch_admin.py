@@ -131,8 +131,8 @@ def _destroy_purges_lane_for_reuse(c):
     for i, node in c.nodes.items():
         assert node.store.tail(1) == 0
         assert node.store.stable(1) is None
-        assert int(node.state.log.last[0, 1]) == 0
-        assert int(node.state.term[0, 1]) == 0
+        assert int(node.state.log.last[1]) == 0
+        assert int(node.state.term[1]) == 0
         assert c.machine_lines(i, 1) == []
     for node in c.nodes.values():
         node.set_active(1, True)

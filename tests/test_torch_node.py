@@ -472,11 +472,15 @@ COPIES = [
     "testkit/faultfs.py", "testkit/openloop.py",
 ]
 # Copies with named edits: the file outside these top-level functions and
-# classes ("name") and methods ("Class.method") equals the reference.  The
-# port's forwards hold no thread while they wait: a stub runs each as a
-# coroutine on its transport's reactor (transport/forward_io.py), which
-# also sends and serves the TCP transport's forwards, instead of a thread
-# per operation at each end; closing a transport closes its reactor.
+# classes ("name"), methods ("Class.method") and module docstrings
+# ("__doc__") equals the reference, once EDIT_MAPS has put the port's
+# lines in place of the reference's.  Every name is the port's; the
+# reference may lack one (a helper the port adds), and REF_ONLY names what
+# only the reference has.  The port's forwards hold
+# no thread while they wait: a stub runs each as a coroutine on its
+# transport's reactor (transport/forward_io.py), which also sends and
+# serves the TCP transport's forwards, instead of a thread per operation
+# at each end; closing a transport closes its reactor.
 EDITED = {"utils/tracelog.py": ["trace_to_numpy"],
           "transport/codec.py": ["messages_template"],
           "api/stub.py": ["RaftStub._forwarded"],
@@ -489,7 +493,58 @@ EDITED = {"utils/tracelog.py": ["trace_to_numpy"],
                                "TcpTransport._on_first_frame",
                                "TcpTransport._read_loop",
                                "TcpTransport.forward_async",
-                               "TcpTransport._serve_forward"]}
+                               "TcpTransport._serve_forward"],
+          # The node's device seam: torch in place of jax.numpy, the
+          # stepper (runtime/step_graph.py) in place of the jitted
+          # node_step, the WAL's restore onto ``device``; the node's state
+          # at [G] lanes as the reference's.  The port also collapses any
+          # standing inbox backlog and keeps an in-flight tick's offers
+          # queued under admission shedding (faults of the reference).
+          "runtime/node.py": [
+              "_host_lane", "_fetch_trees", "_reset_lanes", "_TickCtx",
+              "RaftNode.__init__", "RaftNode.close",
+              "RaftNode.profile_ticks", "RaftNode.tick",
+              "RaftNode._health_tick", "RaftNode._dispatch",
+              "RaftNode._fetch", "RaftNode._persist_prepare",
+              "RaftNode.catch_up_gap", "RaftNode._purge_lanes"],
+          # torch.profiler in place of jax.profiler, same entry points.
+          "utils/profiling.py": [
+              "__doc__", "_profile", "_export", "device_trace",
+              "TickProfiler.__init__", "TickProfiler.arm",
+              "TickProfiler.step", "TickProfiler.after_tick",
+              "TickProfiler._stop", "TickProfiler.close"]}
+REF_ONLY = {"utils/profiling.py": ["TickProfiler._release"]}
+# The reference's lines (left) that a named-edit copy holds in its own
+# words (right), outside its named parts: the import blocks, and the
+# profiler's note on why one trace runs at a time.
+EDIT_MAPS = {
+    "runtime/node.py": [
+        (b"import jax\nimport jax.numpy as jnp\nimport numpy as np\n",
+         b"import numpy as np\nimport torch\n"),
+        (b"from ..core.step import node_step\n"
+         b"from ..core.types import (\n"
+         b"    I32, I32_SAFE_MAX, LEADER, NIL, EngineConfig, HostInbox, "
+         b"Messages,\n"
+         b"    StepInfo, boot_conf_word as _boot_conf_word, init_state,\n)\n",
+         b"from ..core.types import (\n"
+         b"    I32_SAFE_MAX, LEADER, NIL, EngineConfig, StepInfo,\n"
+         b"    boot_conf_word as _boot_conf_word, resolve_device,\n)\n"),
+        (b"from .admission import admission_from_env\n",
+         b"from .admission import admission_from_env\n"
+         b"from .step_graph import NodeStepper, to_host\n"),
+    ],
+    "utils/profiling.py": [
+        (b"import os\nfrom typing", b"import os\nimport time\nfrom typing"),
+        ("# jax.profiler traces are PROCESS-global (start_trace raises if "
+         "one is\n# already running), so at most one TickProfiler may hold "
+         "a trace at a time \u2014\n# in-process multi-node harnesses "
+         "construct several RaftNodes, and with\n".encode(),
+         "# The torch profiler is process-global (one kineto session at a "
+         "time), so\n# at most one TickProfiler may hold a trace at a time "
+         "\u2014 in-process\n# multi-node harnesses construct several "
+         "RaftNodes, and with\n".encode()),
+    ],
+}
 
 
 def _read(pkg, rel):
@@ -498,11 +553,17 @@ def _read(pkg, rel):
 
 
 def _cut(src: bytes, names, added=False) -> bytes:
-    """``src`` without the named top-level functions and classes, and
-    methods named ``Class.method``, each up to the next line at its own
-    indentation or less.  A name missing from ``src`` fails, unless
-    ``added`` (the reference lacks what the port adds)."""
+    """``src`` without the named top-level functions and classes, methods
+    named ``Class.method`` (each up to the next line at its own
+    indentation or less) and ``__doc__`` (the module docstring).  A name
+    missing from ``src`` fails, unless ``added`` (the reference lacks what
+    the port adds)."""
     for name in names:
+        if name == "__doc__":
+            m = re.match(rb'""".*?"""\n', src, re.S)
+            assert m, name
+            src = src[m.end():]
+            continue
         cls, _, meth = name.rpartition(".")
         if cls:
             c = re.search(rb"^class " + cls.encode() + rb"\b.*?(?=^\S|\Z)",
@@ -524,10 +585,14 @@ def _cut(src: bytes, names, added=False) -> bytes:
 @pytest.mark.parametrize("rel", COPIES + sorted(EDITED))
 def test_copied_module_matches_reference(rel):
     port, ref = _read("rafting_tpu_torch", rel), _read("rafting_tpu", rel)
+    for theirs, ours in EDIT_MAPS.get(rel, ()):
+        assert ref.count(theirs) == 1, theirs
+        ref = ref.replace(theirs, ours)
     names = EDITED.get(rel)
     if names:
         assert port != ref
-        port, ref = _cut(port, names), _cut(ref, names, added=True)
+        port = _cut(port, names)
+        ref = _cut(_cut(ref, REF_ONLY.get(rel, ())), names, added=True)
     assert port == ref, f"rafting_tpu_torch/{rel} drifted from the reference"
 
 

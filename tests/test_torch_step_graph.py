@@ -17,6 +17,10 @@ the CPU, against the JAX package's ``RaftNode``.
   counts them; a failed capture raises and leaves no graph; a closed
   node holds no graph, with no pass of the garbage collector; a lane the
   node replaced reaches the static state.
+* The node's state at ``[G]`` lanes: the stepper hands back row-0 views
+  of its static ``[1, G]`` buffers, copies into them only the leaves the
+  node replaced (none on a tick where it replaced nothing), and the next
+  step sees each such write.
 """
 
 import contextlib
@@ -42,7 +46,9 @@ from rafting_tpu_torch.ops import quorum
 from rafting_tpu_torch.runtime.node import _fetch_trees
 from rafting_tpu_torch.runtime.step_graph import NodeStepper, to_host
 from rafting_tpu_torch.snapshot.policy import MaintainAgreement
-from rafting_tpu_torch.testkit.lockstep import PINNED_ENV, Lockstep
+from rafting_tpu_torch.testkit.lockstep import (
+    PINNED_ENV, Lockstep, same_lanes,
+)
 
 CFG_KW = dict(n_groups=8, n_peers=3, log_slots=16, batch=4, max_submit=4,
               election_ticks=10, heartbeat_ticks=3, rpc_timeout_ticks=8)
@@ -148,7 +154,11 @@ def _inputs(cfg):
 
 
 def _state(cfg):
-    return stack_states([init_state(cfg, 0, seed=3, device="cpu")])
+    return init_state(cfg, 0, seed=3, device="cpu")
+
+
+def _row0(tree):
+    return tree_map(lambda t: t[0], tree)
 
 
 def test_a_graph_needs_a_card():
@@ -160,8 +170,8 @@ def test_uncaptured_step_equals_node_step_and_adopts_replaced_lanes():
     host, arrays = _inputs(CFG)
     st = NodeStepper(CFG, torch.device("cpu"), _fetch_trees,
                      capture=False)
-    ref = _state(CFG)
-    s = ref
+    ref = stack_states([_state(CFG)])
+    s = _state(CFG)
     to_t = lambda d: {k: torch.from_numpy(np.array(v)).unsqueeze(0)
                       for k, v in d.items()}
     for t in range(30):
@@ -169,24 +179,65 @@ def test_uncaptured_step_equals_node_step_and_adopts_replaced_lanes():
             # The node replaces a lane (a lifecycle write): the static
             # state takes it at the next step.
             closed = s.active.clone()
-            closed[0, 5] = False
+            closed[5] = False
             s = s.replace(active=closed)
-            ref = ref.replace(active=closed.clone())
+            ref = ref.replace(active=closed[None].clone())
         ref, ro, ri = node_step(CFG, ref, Messages(**to_t(arrays)),
                                 HostInbox(**to_t(host)))
         s, so, si, packed = st.step(s, host, arrays)
         assert s is st.state
-        for a, b in zip(*(state_to_numpy(x).values() for x in (s, ref))):
-            if isinstance(a, np.ndarray):
-                np.testing.assert_array_equal(a, b)
-        for x, y in ((so, ro), (si, ri)):
-            tree_map(lambda a, b: np.testing.assert_array_equal(
-                a.numpy(), b.numpy()), x, y)
+        # [G] lanes, shape and value: node_step's row 0.
+        same_lanes(s, _row0(ref), f"tick {t} state")
+        same_lanes(so, _row0(ro), f"tick {t} outbox")
+        same_lanes(si, _row0(ri), f"tick {t} info")
         # What the step packed reads back as the lanes themselves do.
         for a, b in zip(to_host(_fetch_trees(s, so, si), packed),
                         to_host(_fetch_trees(s, so, si))):
             tree_map(np.testing.assert_array_equal, a, b)
-    assert not bool(st.state.active[0, 5])
+    assert not bool(st.state.active[5])
+    assert st.copied == 1
+
+
+def test_adopt_copies_only_the_leaves_the_node_replaced():
+    """After the first step the node holds the stepper's own views: a step
+    given them back copies nothing; a step given one replaced leaf copies
+    that leaf alone, into the static state the views read, and the step
+    runs on it (as ``node_step`` does on the same state)."""
+    host, arrays = _inputs(CFG)
+    to_t = lambda d: {k: torch.from_numpy(np.array(v)).unsqueeze(0)
+                      for k, v in d.items()}
+    ref = stack_states([_state(CFG)])
+
+    def ref_step():
+        nonlocal ref
+        ref, _, ri = node_step(CFG, ref, Messages(**to_t(arrays)),
+                               HostInbox(**to_t(host)))
+        return ri
+    st = NodeStepper(CFG, torch.device("cpu"), _fetch_trees,
+                     capture=False)
+    s, *_ = st.step(_state(CFG), host, arrays)
+    ref_step()
+    static = {t.untyped_storage().data_ptr()
+              for t in (st._static.term, st._static.log.last)}
+    assert s.term.untyped_storage().data_ptr() in static
+    assert s.now.shape == () and st._static.now.shape == (1,)
+    for _ in range(6):
+        s, *_ = st.step(s, host, arrays)
+        ref_step()
+    assert st.copied == 0
+    closed = s.active.clone()
+    closed[2] = False
+    ref = ref.replace(active=closed[None].clone())
+    s, _, info, _ = st.step(s.replace(active=closed), host, arrays)
+    same_lanes(info, _row0(ref_step()), "info")
+    same_lanes(s, _row0(ref), "state")
+    assert st.copied == 1
+    assert not bool(st._static.active[0, 2]) and s.active is st.state.active
+    for _ in range(12):
+        s, *_ = st.step(s, host, arrays)
+        ref_step()
+    same_lanes(s, _row0(ref), "state")
+    assert st.copied == 1 and not bool(s.active[2])
 
 
 class _FakeStream:
@@ -298,9 +349,10 @@ def test_a_closed_node_holds_no_graph(fake_capture, monkeypatch, tmp_path):
         try:
             tc.kill_node(0)
             assert not st._layouts and st.state is None
+            assert st._static is None
             assert all(g() is None for g in graphs)
             # What the node read last stays readable after its close.
-            assert node.state.term.shape == (1, CFG.n_groups)
+            assert node.state.term.shape == (CFG.n_groups,)
         finally:
             gc.enable()
     finally:
