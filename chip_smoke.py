@@ -78,9 +78,10 @@ no result line):
              submit_batch_many): settle, 5 warm-up + 10 measured rounds,
              kill the node leading the most groups, re-elect, restart it
              from its WAL, drain.  One leader per group, converged
-             commits, payload agreement and every acknowledged submission
-             read back on 512 seeded groups, one kernel launch per node
-             tick.
+             commits, agreement on (term, payload) at every committed
+             index each node has staged (every node drained to its final
+             commit) and every acknowledged submission read back on 512
+             seeded groups, one kernel launch per node tick.
 10. api-testnode — BASELINE.json configs[0], the reference's TestNode1-3
              procedure: three `python -m rafting_tpu_torch.tools.noderun`
              processes on the card (XML defaults, three free localhost
@@ -110,7 +111,11 @@ no result line):
              the led groups not ready and, per peer, those with an RPC
              timeout within recovery_ticks, a fail streak past
              avail_crit, no reply yet, a timeout since the wave began, and
-             the groups in a leadership transfer.
+             the groups in a leadership transfer.  After the warm-up wave,
+             and again when a ready wait fails, it prints each node's
+             slowest ticks with their stage split, the capture-lock wait
+             and captures inside each, each node's captured layouts, and
+             the collector's pauses.
 12. oracle  — the port's node_step on the card against the scalar oracle
              (testkit/oracle.py) on the host, every state lane, outbound
              message and step-info field at every step, under seeded
@@ -1026,18 +1031,34 @@ RUNTIME_SAMPLE = 512
 
 
 class _PayloadAudit:
-    """Reads the committed payloads of a seeded sample of groups from
-    every node's LogStore after each round (compaction keeps the newest
-    committed entries, so nothing is missed between two reads), and the
-    indices of every acknowledged submission in the sample.  ``seconds``
-    is the time spent reading, which the round timing leaves out."""
+    """Reads the committed entries, ``(term, payload)``, of a seeded
+    sample of groups from every node's LogStore after each round
+    (compaction keeps the newest committed entries, so nothing is missed
+    between two reads), and the indices of every acknowledged submission
+    in the sample.  ``seconds`` is the time spent reading, which the
+    round timing leaves out.
+
+    An index is read only once the node has staged it: after the host
+    phase of the tick that committed it.  A pipelined node fetches a
+    tick's commit (``h_commit``) one tick before that tick's host phase
+    stages its entries, so a store read up to ``h_commit`` right after
+    ``tick()`` can return the payload that a deposed leader's suffix held
+    at an index the new leader's entries are about to overwrite (tests/
+    test_torch_payload_agreement.py makes this happen in both packages).
+    The bound is therefore the commit the node had fetched before its
+    last tick (``staged``); ``drain`` runs every node's pending host
+    phase and reads up to the final commit."""
 
     def __init__(self, G: int, n: int, seed: int = 0):
         self.groups = np.sort(np.random.default_rng(seed).choice(
             G, n, replace=False)).tolist()
         self.sample = set(self.groups)
-        self.read: dict = {}        # (node, group) -> {index: payload}
+        self._idx = np.asarray(self.groups, np.int64)
+        self.read: dict = {}    # (node, group) -> {index: (term, payload)}
+        self.at: dict = {}      # (node, group, index) -> what the read saw
         self.upto: dict = {}        # (node, group) -> last index read
+        self.staged: dict = {}      # node -> (RaftNode, commit it staged)
+        self.roles: dict = {}       # node -> (RaftNode, roles, tick changed)
         self.sinks: list = []       # (group, payloads, sink)
         self.seconds = 0.0
 
@@ -1047,22 +1068,81 @@ class _PayloadAudit:
             if g in self.sample:
                 self.sinks.append((g, burst, sink))
 
+    def _bound(self, i, n) -> "np.ndarray | None":
+        """The commit whose entries node ``i`` has staged: its fetched
+        commit when nothing is pending (serial, or drained), else the
+        commit it had fetched before its last tick (None for a node this
+        audit has not seen tick yet)."""
+        prev = self.staged.get(i)
+        now = np.asarray(n.h_commit).copy()
+        self.staged[i] = (n, now)
+        if n._pending is None:
+            return now
+        return prev[1] if prev is not None and prev[0] is n else None
+
+    def _role_ticks(self, i, n) -> np.ndarray:
+        """Ticks since node ``i`` last changed role in each sampled group
+        (since the audit first saw this RaftNode, for a role it kept)."""
+        role = np.asarray(n.h_role)[self._idx].copy()
+        prev = self.roles.get(i)
+        if prev is None or prev[0] is not n:
+            since = np.full(len(role), n.ticks, np.int64)
+        else:
+            since = np.where(role != prev[1], n.ticks, prev[2])
+        self.roles[i] = (n, role, since)
+        return n.ticks - since
+
     def collect(self, nodes) -> None:
         t0 = time.perf_counter()
         for i, n in nodes.items():
-            for g in self.groups:
+            bound = self._bound(i, n)
+            quiet = self._role_ticks(i, n)
+            if bound is None:
+                continue
+            for j, g in enumerate(self.groups):
                 got = self.read.setdefault((i, g), {})
                 lo = max(self.upto.get((i, g), 0), n.store.floor(g)) + 1
-                hi = min(int(n.h_commit[g]), n.store.tail(g))
+                tail = n.store.tail(g)
+                hi = min(int(bound[g]), tail)
                 if hi < lo:
                     continue
+                seen = (int(bound[g]), int(n.h_commit[g]), tail,
+                        int(n._durable_tail_m[g]), int(n.h_role[g]),
+                        int(n.h_term[g]), int(quiet[j]), n.ticks)
                 for k, p in enumerate(n.store.payloads_window(
                         g, lo, hi - lo + 1)):
                     if p is None:
                         break
-                    got[lo + k] = p
+                    got[lo + k] = (n.store.entry_term(g, lo + k), p)
+                    self.at[(i, g, lo + k)] = seen
                     self.upto[(i, g)] = lo + k
         self.seconds += time.perf_counter() - t0
+
+    def drain(self, nodes) -> None:
+        """Run every node's pending host phase (its tick's entries staged,
+        its outbox sent, its applies made), then read up to each node's
+        final commit: no committed index of the sample escapes."""
+        for n in nodes.values():
+            prev, n._pending = n._pending, None
+            if prev is not None:
+                n._host_phase(prev)
+        self.collect(nodes)
+
+    def _disagree(self, g: int, idx: int, node_ids) -> str:
+        parts = []
+        for i in node_ids:
+            e = self.read.get((i, g), {}).get(idx)
+            if e is None:
+                continue
+            staged, commit, tail, dtail, role, term, quiet, tick = \
+                self.at[(i, g, idx)]
+            parts.append(
+                f"node {i}: (term {e[0]}, {e[1][:16]!r}), read at its tick "
+                f"{tick} with h_commit {commit} (staged {staged}), "
+                f"store.tail {tail}, durable-tail mirror {dtail}, role "
+                f"{role}, term {term}, {quiet} ticks since its role in "
+                f"the group changed")
+        return "; ".join(parts)
 
     def check(self, node_ids) -> tuple:
         """Agreement on every index two nodes both read; every
@@ -1076,7 +1156,8 @@ class _PayloadAudit:
                     for idx in a.keys() & b.keys():
                         if a[idx] != b[idx]:
                             raise AssertionError(
-                                f"group {g} index {idx}: replicas disagree")
+                                f"group {g} index {idx}: replicas disagree"
+                                f" ({self._disagree(g, idx, node_ids)})")
         acked = everywhere = 0
         for g, burst, sink in self.sinks:
             f = sink.future
@@ -1086,7 +1167,7 @@ class _PayloadAudit:
                 acked += 1
                 found = [self.read.get((i, g), {}).get(idx)
                          for i in node_ids]
-                hits = [x for x in found if x is not None]
+                hits = [x[1] for x in found if x is not None]
                 if any(x != p for x in hits) or \
                         2 * len(hits) <= len(node_ids):
                     raise AssertionError(
@@ -1209,6 +1290,7 @@ def phase_runtime() -> dict:
                     f"{int((hc != hc[0:1]).any(axis=0).sum())} groups with "
                     f"differing commits, {int((leaders() != 1).sum())} "
                     f"without exactly one leader")
+        audit.drain(c.nodes)
         acked, everywhere = audit.check(sorted(c.nodes))
         launches = _launches("runtime")
         if launches != ticks or meas_launches != meas_ticks:
@@ -1236,8 +1318,11 @@ def phase_runtime() -> dict:
             f"({churn_s:.2f}s); restarted from its WAL, converged after "
             f"{drain} rounds; {acked} acknowledged submissions in "
             f"{RUNTIME_SAMPLE} sampled groups all read back ({everywhere} "
-            f"on all 3 nodes; reading them took {audit.seconds:.1f}s, "
-            f"outside the timings); quorum_commit {launches} launches in "
+            f"on all 3 nodes; {sum(map(len, audit.read.values()))} "
+            f"committed entries read as (term, payload) once staged, every "
+            f"node drained to its final commit; reading them took "
+            f"{audit.seconds:.1f}s, outside the timings); quorum_commit "
+            f"{launches} launches in "
             f"{ticks} node ticks ({sum(st.replays for st in steppers)} of "
             f"them in replays of a captured node_step), "
             f"{_kernel_line(kern)}; peak memory "
@@ -1528,25 +1613,118 @@ def _quantile(xs, q: float) -> float:
 
 
 def _record_ticks(node, out: list) -> None:
-    """Append ``(end, seconds)`` of each of ``node``'s ticks to ``out``
-    (for the printed tick times only; the tick is unchanged)."""
-    real = node.tick
+    """Append ``(end, seconds, stages, lock wait, captures)`` of each of
+    ``node``'s ticks to ``out``: its wall time, the seconds of each
+    ``tick_stage_*`` the tick observed, the seconds it waited for the
+    capture lock and the graphs it captured (for the printed tick times
+    only; the tick is unchanged)."""
+    real, observe = node.tick, node.metrics.observe
+    stepper = node._stepper
+    stages: dict = {}
+
+    def seen(name, value, *a, **kw):
+        if name.startswith("tick_stage_"):
+            stages[name[11:-2]] = stages.get(name[11:-2], 0.0) + value
+        return observe(name, value, *a, **kw)
 
     def tick():
+        stages.clear()
+        w0, c0 = stepper.lock_wait_s, stepper.captures
         t0 = time.perf_counter()
         try:
             return real()
         finally:
             t1 = time.perf_counter()
-            out.append((t1, t1 - t0))
+            out.append((t1, t1 - t0, dict(stages),
+                        stepper.lock_wait_s - w0, stepper.captures - c0))
+    node.metrics.observe = seen
     node.tick = tick
+
+
+class _GcPauses:
+    """The collector's pauses, ``(start, seconds, generation)``, from
+    ``gc.callbacks`` while the watch is open."""
+
+    def __init__(self):
+        import gc
+        self.pauses: list = []
+        self._t0 = 0.0
+        self._gc = gc
+        gc.callbacks.append(self._cb)
+
+    def _cb(self, phase, info) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.pauses.append((self._t0, time.perf_counter() - self._t0,
+                                info["generation"]))
+
+    def close(self) -> None:
+        if self._cb in self._gc.callbacks:
+            self._gc.callbacks.remove(self._cb)
+
+    def within(self, lo: float, hi: float) -> list:
+        return [p for p in list(self.pauses) if lo <= p[0] <= hi]
+
+
+def _slow_ticks(tick_log: dict, steppers: dict, gcw: "_GcPauses",
+                lo: float, hi: float, k: int = 3) -> list:
+    """Lines on what stalled the nodes in [lo, hi]: each node's ``k``
+    slowest ticks with their stage split (ms; ``rest`` is the tick outside
+    the stages: the dispatch, the eager sends, the planes after the
+    fetch), capture-lock wait and captures, and the collector's pauses
+    inside each; each node's captures so far, each with its layout's
+    lanes, lock wait and capture time; the collector's pauses in the
+    window."""
+    lines = []
+    gcs = gcw.within(lo, hi)
+    for nid, rec in sorted(tick_log.items()):
+        ticks = [r for r in list(rec) if lo <= r[0] <= hi]
+        top = sorted(ticks, key=lambda r: -r[1])[:k]
+        parts = []
+        for t1, dt, stages, wait, caps in top:
+            inside = [p for p in gcs if t1 - dt <= p[0] <= t1]
+            parts.append(
+                f"{dt * 1e3:.0f} ms ("
+                + ", ".join(f"{s} {v * 1e3:.0f}"
+                            for s, v in sorted(stages.items()))
+                + f", rest {(dt - sum(stages.values())) * 1e3:.0f}"
+                f"; lock wait {wait * 1e3:.0f}, {caps} captures, "
+                f"gc {len(inside)} pauses "
+                f"{sum(p[1] for p in inside) * 1e3:.0f} ms)")
+        lines.append(f"node{nid} slowest of {len(ticks)} ticks: "
+                     + "; ".join(parts))
+    for nid, st in sorted(steppers.items()):
+        first = None
+        caps = []
+        for key, wait, secs in st.layouts:
+            lanes = {(i, k): (dt, shape) for i, k, dt, shape in key}
+            if first is None:
+                first, diff = lanes, f"{len(lanes)} lanes"
+            else:
+                diff = "lanes " + ", ".join(
+                    [f"+{k}{lanes[(i, k)][1]}" for i, k in lanes
+                     if first.get((i, k)) != lanes[(i, k)]]
+                    + [f"-{k}" for i, k in first if (i, k) not in lanes])
+            caps.append(f"{diff}: wait {wait * 1e3:.0f} ms, capture "
+                        f"{secs * 1e3:.0f} ms")
+        lines.append(f"node{nid} {st.captures} captures ({st.replays} "
+                     f"replays): " + "; ".join(caps))
+    by_gen = {}
+    for _, secs, gen in gcs:
+        by_gen.setdefault(gen, []).append(secs)
+    lines.append("gc pauses in the window: " + (", ".join(
+        f"gen {g} {len(v)} ({sum(v) * 1e3:.0f} ms, max "
+        f"{max(v) * 1e3:.0f} ms)" for g, v in sorted(by_gen.items()))
+        or "none"))
+    return lines
 
 
 def _tick_times(tick_log: dict, lo: float, hi: float) -> str:
     """Each node's ticks that ended in [lo, hi]: count, p50 and max."""
     parts = []
     for nid, rec in sorted(tick_log.items()):
-        d = [dt for t, dt in list(rec) if lo <= t <= hi]
+        d = [r[1] for r in list(rec) if lo <= r[0] <= hi]
         parts.append(f"node{nid} {len(d)} ticks, p50 "
                      f"{_quantile(d, 0.5) * 1e3:.0f} ms, max "
                      f"{max(d) * 1e3:.0f} ms" if d else f"node{nid} 0 ticks")
@@ -1668,6 +1846,7 @@ def phase_api_1k() -> dict:
     cs: list = []
     stack0 = None
     stop_mem = threading.Event()
+    gcw = None
     torch.cuda.reset_peak_memory_stats()
     quorum.reset_launch_counts()
     t_boot = time.perf_counter()
@@ -1682,8 +1861,10 @@ def phase_api_1k() -> dict:
         lane_of = lanes[0]
         idx = np.array(lane_of)
         tick_log = {c.node.node_id: [] for c in cs}
+        steppers = {c.node.node_id: c.node._stepper for c in cs}
         for c in cs:
             _record_ticks(c.node, tick_log[c.node.node_id])
+        gcw = _GcPauses()
         # The last wave's start: its wall time and each node's tick clock.
         last_wave = {"t": time.perf_counter(), "now": {}}
 
@@ -1799,6 +1980,11 @@ def phase_api_1k() -> dict:
                     for line in _api_health(nodes, idx, last_wave["now"]):
                         log(f"[api-1k]   {label} wave {w} wait failed: "
                             f"{line}")
+                    for line in _slow_ticks(tick_log, steppers, gcw,
+                                            last_wave["t"],
+                                            time.perf_counter()):
+                        log(f"[api-1k]   {label} wave {w} wait failed, "
+                            f"since the last wave: {line}")
                     raise AssertionError(
                         f"{label} wave {w}: {share:.1%} of the groups "
                         f"had a ready leader {waited_ticks} ticks after the "
@@ -1842,6 +2028,11 @@ def phase_api_1k() -> dict:
         threading.Thread(target=sample_mem, daemon=True).start()
         for w in range(API_WARMUP):
             logged_wave(w, "warm-up")
+        # What stalled a node over the warm-up wave (PERF.md §7): the
+        # slowest ticks, the captures, the collector.
+        for line in _slow_ticks(tick_log, steppers, gcw, t_boot,
+                                time.perf_counter()):
+            log(f"[api-1k]   warm-up: {line}")
         for c in cs:
             c.node.metrics.histogram("tick_latency_s").reset()
             for stage in c.node.metrics.breakdown():
@@ -1983,6 +2174,8 @@ def phase_api_1k() -> dict:
         return kern
     finally:
         stop_mem.set()
+        if gcw is not None:
+            gcw.close()
         if stack0 is not None:
             threading.stack_size(stack0)
         for c in cs:

@@ -299,6 +299,11 @@ class RaftStub:
             # refusing node NAMED the peer it handed the group to, which
             # beats the leader-hint mirror while the fleet re-points.
             hint_override: Optional[int] = None
+            # Whether this chase has sent an attempt anywhere (a forward,
+            # or a local submit the node did not refuse at once): until
+            # it has, a give-up for want of a leader is a refusal, since
+            # the operation is in no log.
+            sent = False
 
             def left() -> float:
                 # Per-attempt cap: never let one blocking wait overrun the
@@ -382,6 +387,7 @@ class RaftStub:
                                 # treatment as a remote REFUSED reply).
                                 yield backoff(exc)
                                 continue
+                            sent = True
                             # Accepted (or pending): wait for the result.
                             # A MARKED transient refusal raised later
                             # (the queued-but-never-accepted rejection
@@ -410,7 +416,13 @@ class RaftStub:
                             else node.leader_hint(lane), None)
                         if hint is not None and hint != node.node_id:
                             break
-                        yield backoff(NotLeaderError(lane, None))
+                        # No leader known.  Giving up here, a chase that
+                        # sent nothing fails with a refusal (retry-safe);
+                        # one that sent an attempt keeps the unmarked
+                        # error, as that attempt's outcome is unknown.
+                        # (The reference marks neither.)
+                        lost = NotLeaderError(lane, None)
+                        yield backoff(lost if sent else as_refusal(lost))
                     br = self._breakers.get(hint)
                     if not br.allow():
                         # Circuit open: don't even connect.  Back off by
@@ -421,6 +433,7 @@ class RaftStub:
                             f"peer {hint}: circuit open",
                             retry_after_s=br.retry_after_s())))
                         continue
+                    sent = True
                     try:
                         ok, raw = yield remote(hint), left() + 1.0
                     except _FutTimeout:

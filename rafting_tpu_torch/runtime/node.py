@@ -1413,7 +1413,13 @@ class RaftNode:
                 self._host_phase(ctx)
         self.metrics.observe("tick_latency_s",
                              time.perf_counter() - _tick_t0)
-        self._admission_tick(time.perf_counter() - _tick_t0)
+        # Admission's delay target is counted in ticks, and a submission
+        # waits at least one tick.  On a paced loop (start()) a tick
+        # lasts its interval, not its busy time: feed the longer of the
+        # two, or a node whose ticks are short beside the interval sheds
+        # a burst it absorbs in a tick or two (a fault of the reference).
+        self._admission_tick(max(time.perf_counter() - _tick_t0,
+                                 self._tick_interval or 0.0))
         # Txn plane: fold driver/resolver counters and (every
         # sweep_every ticks) resolve expired write-intents on groups
         # this node leads (runtime/txn.py — coordinator timeouts are

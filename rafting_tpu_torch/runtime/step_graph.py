@@ -23,7 +23,9 @@ counterpart of the jitted executable:
   dtype first, and land with ONE host->device copy (pinned,
   non-blocking) in a static buffer that the graph reads through views;
   one graph is captured for each layout of those lanes (the optional
-  ``durable_tail`` lane makes two);
+  ``durable_tail`` lane makes two; ``layouts`` lists each capture's
+  layout with the seconds it waited for the process-wide capture lock
+  and the seconds the capture took);
 * the outbox and the step info are the graph's own outputs (the node
   gets their row-0 views too), and so is one uint8 tensor packing what
   the node reads back (``fetch``): each holds a tick's values until the
@@ -128,7 +130,8 @@ class _Layout:
 
     def __init__(self, items, device: torch.device):
         """``items``: (dict index, key, dtype, shape) of each lane, in
-        packing order."""
+        packing order (the layout's key)."""
+        self.key = items
         nbytes = sum(np.dtype(dt).itemsize * int(np.prod(shape))
                      for _, _, dt, shape in items)
         self.buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
@@ -167,6 +170,8 @@ class NodeStepper:
         self._warm = False
         self._stream = torch.cuda.Stream(device) if capture else None
         self.captures = 0            # graphs captured
+        self.lock_wait_s = 0.0       # host seconds waiting for the lock
+        self.layouts: list = []      # (layout key, wait s, capture s) each
         self.replays = 0             # ticks that replayed a graph
         self.replay_s = 0.0          # host seconds inside those replays
         self.copied = 0              # leaves _adopt copied after the first
@@ -236,7 +241,9 @@ class NodeStepper:
     def _capture(self, lay: _Layout) -> None:
         graph = torch.cuda.CUDAGraph()
         cur = torch.cuda.current_stream(self.device)
+        t0 = time.perf_counter()
         with _CAPTURE_LOCK:
+            t1 = time.perf_counter()
             self._stream.wait_stream(cur)
             try:
                 with quorum.recording_launches() as rec, \
@@ -252,8 +259,11 @@ class NodeStepper:
                     f"({type(exc).__name__}: {exc}); the step does not "
                     f"run eagerly instead") from exc
             cur.wait_stream(self._stream)
+        t2 = time.perf_counter()
         lay.graph, lay.outs, lay.launches = graph, outs, list(rec)
         self.captures += 1
+        self.lock_wait_s += t1 - t0
+        self.layouts.append((lay.key, t1 - t0, t2 - t1))
 
     def step(self, state, host_lanes: dict, arrays: dict) -> tuple:
         lay = self._load((host_lanes, arrays))

@@ -971,10 +971,11 @@ def run_txn_stage(device: str = "") -> list:
                 tick_faults.append(e)
                 raise
 
+        ticker = threading.Thread(target=tick_loop, daemon=True)
         try:
             for g in range(n_groups):
                 cluster.wait_leader(g)
-            threading.Thread(target=tick_loop, daemon=True).start()
+            ticker.start()
             hosts = [StubHost(cluster, c % cfg.n_peers)
                      for c in range(clients)]
             seeder = StubHost(cluster, 0)
@@ -1046,7 +1047,11 @@ def run_txn_stage(device: str = "") -> list:
             wr_tot, wr_el = phase(write_body)
         finally:
             stop.set()
-            time.sleep(0.05)
+            # The nodes close only once their last tick has ended: a
+            # closing node releases its step's buffers, which a tick still
+            # in flight would read.
+            if ticker.is_alive():
+                ticker.join(timeout=60)
             cluster.close()
             shutil.rmtree(root, ignore_errors=True)
         if tick_faults:

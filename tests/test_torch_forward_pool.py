@@ -356,10 +356,11 @@ class _Leaderless(_Node):
 @pytest.mark.parametrize("pkg", ["jax", "port"])
 def test_a_chase_with_no_leader_gives_up_as_the_reference_does(pkg):
     """A forward with no leader to go to sends nothing, and once its
-    budget is spent the operation fails with a NotLeaderError that is
-    not marked as a refusal, in the port as in the reference (which a
-    client then records as of unknown outcome, though the operation is
-    in no log: a fault of the reference that the port keeps)."""
+    budget is spent the operation fails with a NotLeaderError.  The
+    reference leaves it unmarked, so a client records an operation that
+    is in no log as of unknown outcome (a fault of the reference, pinned
+    here as it is); the port marks it as a refusal, which is safe to
+    retry."""
     if pkg == "jax":
         from rafting_tpu.api.anomaly import is_refusal
         from rafting_tpu.api.stub import RaftStub as Stub
@@ -374,8 +375,41 @@ def test_a_chase_with_no_leader_gives_up_as_the_reference_does(pkg):
         fut = stub.submit("x", timeout=0.3)
         exc = fut.exception(timeout=10)
         assert type(exc).__name__ == "NotLeaderError"
-        assert not is_refusal(exc)
+        assert is_refusal(exc) == (pkg == "port")
         assert getattr(transport, "calls", 0) == 0
     finally:
         if pkg == "port":
             transport._reactor.close()
+
+
+class _LosesItsLeader(_Node):
+    """A node that knows the leader until its stub has sent one forward,
+    and none after."""
+
+    def leader_hint(self, lane):
+        return 0 if self.transport.calls == 0 else None
+
+
+class _RefusingTransport(_AsyncTransport):
+    """The leader refuses every forward at once: it stepped down."""
+
+    def forward_async(self, peer, lane, payload, timeout, read=False):
+        f = super().forward_async(peer, lane, payload, timeout, read)
+        f.set_result((False, b"REFUSED:NotLeaderError:not the leader"))
+        return f
+
+
+def test_a_chase_that_sent_an_attempt_keeps_the_unmarked_error():
+    """A chase that sent one forward and then lost the leader gives up
+    with the unmarked NotLeaderError: it cannot know what its attempt
+    became, so the client must treat the outcome as unknown."""
+    from rafting_tpu_torch.api.anomaly import is_refusal
+    transport = _RefusingTransport()
+    stub = RaftStub(_Container(_LosesItsLeader(transport)), "g", 1)
+    try:
+        exc = stub.submit("x", timeout=0.3).exception(timeout=10)
+        assert type(exc).__name__ == "NotLeaderError"
+        assert not is_refusal(exc)
+        assert transport.calls == 1
+    finally:
+        transport._reactor.close()

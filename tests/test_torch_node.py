@@ -10,7 +10,8 @@
 * One linearizable read through ``RaftNode.read``, port against JAX, and
   one behind a standing inbox backlog (served by the port only); the
   pipelined late shed beside the in-flight offer (the reference asserts,
-  the port keeps the offer queued).
+  the port keeps the offer queued); admission's tick on a paced node (the
+  reference counts the busy time, the port the interval).
 * WAL interchange: a WAL written by one package restores lane for lane
   the same in the other (a group with a gap takes the slow-scan branch).
 * Guards: the copied modules stay byte-equal to the reference, the
@@ -381,6 +382,39 @@ def test_pipelined_late_shed_keeps_the_inflight_offer(tmp_path, monkeypatch,
         lc.close()
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_a_paced_node_counts_admission_ticks_at_its_interval(
+        tmp_path, monkeypatch, pkg):
+    """Admission's delay target is ``target_ticks`` ticks of the tick's
+    wall time, and a submission waits at least one tick.  A node paced at
+    an interval (``start()``, as a container runs it) ticks once per
+    interval however short its busy time.  The reference feeds the busy
+    time, so its target falls below the wait of every queued submission
+    and it sheds a burst it would absorb; the port feeds the interval."""
+    for k, v in PINNED_ENV.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("RAFT_ADMISSION", "1")
+    interval = 30.0
+    lc = JaxLocalCluster(JaxEngineConfig(**CFG_KW), str(tmp_path)) \
+        if pkg == "jax" else _cluster(tmp_path)
+    try:
+        lc.wait_leader(0)
+        for node in lc.nodes.values():
+            # The paced loop's interval, without its thread; the ticks
+            # before it (the first compiles) leave the estimate.
+            node._tick_interval = interval
+            node.admission._tick_ewma = None
+        lc.tick(3)
+        targets = [n.admission.target_now() for n in lc.nodes.values()]
+        bound = lc.nodes[0].admission.target_ticks * interval
+        if pkg == "jax":
+            assert max(targets) < bound, targets
+        else:
+            assert min(targets) >= bound, targets
+    finally:
+        lc.close()
+
+
 # ---------------------------------------------------------- WAL interchange --
 
 def _write_wal(kind, root):
@@ -498,8 +532,9 @@ EDITED = {"utils/tracelog.py": ["trace_to_numpy"],
           # stepper (runtime/step_graph.py) in place of the jitted
           # node_step, the WAL's restore onto ``device``; the node's state
           # at [G] lanes as the reference's.  The port also collapses any
-          # standing inbox backlog and keeps an in-flight tick's offers
-          # queued under admission shedding (faults of the reference).
+          # standing inbox backlog, keeps an in-flight tick's offers
+          # queued under admission shedding and feeds admission a paced
+          # tick's interval (faults of the reference).
           "runtime/node.py": [
               "_host_lane", "_fetch_trees", "_reset_lanes", "_TickCtx",
               "RaftNode.__init__", "RaftNode.close",

@@ -311,6 +311,38 @@ def test_replays_count_the_launches_their_capture_recorded(fake_capture):
     assert st.captures == 2 and quorum.launch_counts["quorum_commit"] == 8
 
 
+def test_a_capture_records_its_layout_and_its_wait_for_the_lock(
+        fake_capture):
+    """Each capture lists its layout's lanes with the seconds it waited
+    for the process-wide capture lock (held here by another thread) and
+    the seconds it took."""
+    import threading
+    from rafting_tpu_torch.runtime import step_graph
+    st = fake_capture
+    host, arrays = _inputs(CFG)
+    s, *_ = st.step(_state(CFG), host, arrays)
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        with step_graph._CAPTURE_LOCK:
+            held.set()
+            release.wait(10)
+    t = threading.Thread(target=hold)
+    t.start()
+    held.wait(10)
+    threading.Timer(0.2, release.set).start()
+    s, *_ = st.step(s, host, arrays)
+    t.join(10)
+    assert not t.is_alive()
+    st.step(s, dict(host, durable_tail=np.zeros(CFG.n_groups, np.int32)),
+            arrays)
+    assert st.captures == len(st.layouts) == 2
+    (k1, w1, c1), (k2, w2, c2) = st.layouts
+    assert w1 >= 0.15 and st.lock_wait_s >= w1 and c1 > 0 and c2 > 0
+    lanes = lambda key: {(i, name) for i, name, _, _ in key}
+    assert lanes(k2) - lanes(k1) == {(0, "durable_tail")}
+
+
 def test_a_failed_capture_raises_and_leaves_no_graph(fake_capture,
                                                       monkeypatch):
     st = fake_capture
