@@ -70,7 +70,17 @@ no result line):
              at the reference's shapes, and no step copied a leaf into
              its static state (the script replaces none);
              at the default config and with the flight recorder, heat
-             lanes, CheckQuorum and debug checks on.
+             lanes, CheckQuorum and debug checks on.  Last, the
+             lifecycle-and-install script of testkit/lockstep.py at 16
+             groups with FileMachines and the aggressive maintain policy
+             (lanes closed and reopened, lanes purged and reused, a node
+             killed until the survivors' floor passes its tail, restarted
+             and caught up by an install in every group, more closes and
+             purges): CUDA against CPU with the pipeline off and on, then
+             replayed against uncaptured, every lane equal at every round,
+             machine files byte-equal, and each step's copies into its
+             static state on exactly the rounds after a lifecycle write
+             (none on an install round), equal across the clusters.
 9. runtime — BASELINE.json configs[2] (10k groups, PreVote, randomized
              leader churn) through three RaftNodes on the card over
              loopback, pipelined, NullProvider, bench_runtime.py's offered
@@ -115,7 +125,11 @@ no result line):
              and again when a ready wait fails, it prints each node's
              slowest ticks with their stage split, the capture-lock wait
              and captures inside each, each node's captured layouts, and
-             the collector's pauses.
+             the collector's pauses.  After each wave it prints the
+             wave's NotReadyErrors by leader node, per peer the refusals
+             that counted it unhealthy and why, the RPC timeouts behind
+             them, and the peer's ticks and the collector's pauses
+             between each such send and its timeout.
 12. oracle  — the port's node_step on the card against the scalar oracle
              (testkit/oracle.py) on the host, every state lane, outbound
              message and step-info field at every step, under seeded
@@ -130,7 +144,23 @@ no result line):
              isolated while the majority compacts past its tail in every
              group, healed; every group caught up by a floor jump, no
              need_snap on a live leader, one launch per tick.
-14. chaos   — rafting_tpu_torch/tools/chaos_run.py on the card, at the
+14. install — configs[4]'s durable half: 256 groups (cut from 100k)
+             x 3 RaftNodes over localhost TCP on the card, pipelined,
+             FileMachine per group, the default MaintainAgreement,
+             [runtime]'s engine and load: settle, kill the node leading
+             the fewest groups, load until both survivors' WAL floor has
+             passed its tail in every group, restart it, load until it
+             has installed a snapshot in every group and passed the
+             survivors' commit, drain.  Every group of the restarted node
+             caught up through a snapshot fetched over TCP (none failed),
+             machine files byte-equal on all nodes in every group, every
+             acknowledged write of 64 sampled groups once in every node's
+             file, one leader per group; then 64 groups closed on every
+             node, 32 of them purged, reopened and loaded: purged files
+             start anew, closed ones keep their history, and each step
+             copies into its static state on exactly the ticks after a
+             lifecycle write; one launch per node tick.
+15. chaos   — rafting_tpu_torch/tools/chaos_run.py on the card, at the
              settings of the JAX package's committed CPU artifacts (the
              isolate and transfer soaks shortened, CHAOS_ISOLATE_ARGS and
              CHAOS_TRANSFER_TICKS; the serial runtime): the
@@ -141,7 +171,7 @@ no result line):
              step-down recorded) and one round of the bank transfer soak
              (check_transfer_atomicity); acknowledged writes and reads by
              every client, committed transfers, one launch per node tick.
-15. config4 — BASELINE.json configs[3]'s partition scenario through
+16. config4 — BASELINE.json configs[3]'s partition scenario through
              rafting_tpu_torch/tools/validate_config4.py's run_config4 at
              100k groups x 5 nodes with debug checks (seed 4): 60 ticks
              under load, one leader per group; the minority {3, 4} cut
@@ -150,7 +180,7 @@ no result line):
              TPU run's 95.7% at 30 and 100% by 120); healed, 75 ticks;
              progress in every group, split brain checked every tick,
              one launch per tick.
-16. shard   — the cluster sharded over torch.distributed through
+17. shard   — the cluster sharded over torch.distributed through
              rafting_tpu_torch/tools/dryrun_multichip.py at 32,768
              groups x 4 nodes, 64 ticks: world 1 over NCCL (mesh 1 x 1,
              in this process) and world 4 over gloo on this card (mesh
@@ -161,7 +191,7 @@ no result line):
              rank launched the kernel once a tick, never on its strided
              path, and held it against its plain version on its last
              launch's operands.
-17. stages  — the last five stages of rafting_tpu_torch/tools/bench.py
+18. stages  — the last five stages of rafting_tpu_torch/tools/bench.py
              in this process: the member child at 100k groups (the
              kernel against the fixed-majority baseline at P=3, 32 + 2 x
              64 ticks each; then the P=6 3->3-disjoint walk: learners in,
@@ -191,11 +221,11 @@ result line.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; before it, one JSON line lists each kernel with its launches
-on the path that launched it (the quorum kernel thirteen times: P=3 on the
+on the path that launched it (the quorum kernel fourteen times: P=3 on the
 headline path, P=3 per block of 25,000 groups on the bench path, P=5 on
 the nemesis path, P=3 at N=1 per node tick on the
-runtime, api-1k and chaos paths, at N=1 per node_step on the oracle path,
-P=3 on the snapshot path, P=5 on the config4 path, and P=4 on the shard
+runtime, api-1k, install and chaos paths, at N=1 per node_step on the
+oracle path, P=3 on the snapshot path, P=5 on the config4 path, and P=4 on the shard
 path: world 1's [4, 32768, 4] and, from rank 0 of world 4, each rank's
 [2, 16384, 4]; P=6 on the member path, its last launch and one inside
 the joint window), its error against the plain
@@ -217,6 +247,7 @@ import signal
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -943,17 +974,90 @@ def phase_runtime_parity() -> None:
                                check_quorum=True, debug_checks=True)
     for label, c_cfg in (("default", cfg), ("subtrees on", full)):
         _graph_parity(label, c_cfg)
+    _lifecycle_parity()
 
 
-def _graph_parity(label: str, cfg) -> None:
+# The lifecycle-and-install script (testkit/lockstep.py
+# run_lifecycle_script) at tests/test_torch_step_graph.py's shape: lanes
+# closed and reopened, lanes purged and reused, a node killed while the
+# survivors compact past its tail under the aggressive maintain policy,
+# restarted and caught up by an install in every group; FileMachines.
+LIFECYCLE_CFG = dict(n_groups=16, n_peers=3, log_slots=16, batch=4,
+                     max_submit=4, election_ticks=10, heartbeat_ticks=3,
+                     rpc_timeout_ticks=8)
+LIFECYCLE_MAINTAIN = dict(state_change_threshold=2, dirty_log_tolerance=1,
+                          snap_min_interval=2, compact_min_interval=2,
+                          compact_slack=2)
+LIFECYCLE_LANES = dict(closed=((3, 4), (9, 10)), purged=((5, 6), (0, 1)),
+                       drain_rounds=4)
+
+
+def _maintain_factory(G: int):
+    from rafting_tpu_torch.snapshot.policy import MaintainAgreement
+    return lambda: MaintainAgreement(G, **LIFECYCLE_MAINTAIN)
+
+
+def _lifecycle_parity() -> None:
+    """The lifecycle-and-install script on CUDA against the CPU, pipeline
+    off and on, every lane of every node's state, step info and outbox
+    equal at every round; then replayed against uncaptured on the card
+    (_graph_parity).  The script itself gates the installs, the machine
+    files and the copies into the static state (on exactly the rounds
+    after a lifecycle write); the copies are equal across the clusters."""
+    import tempfile
+    from rafting_tpu_torch import EngineConfig, LocalCluster
+    from rafting_tpu_torch.testkit.lockstep import (
+        pinned_env, run_lifecycle_script,
+    )
+    cfg = EngineConfig(**LIFECYCLE_CFG)
+    for pipeline in (False, True):
+        with tempfile.TemporaryDirectory() as root, pinned_env():
+            t0 = time.perf_counter()
+            cl = [LocalCluster(cfg, os.path.join(root, f"c{k}"),
+                               pipeline=pipeline,
+                               maintain_factory=_maintain_factory(
+                                   cfg.n_groups), device=d)
+                  for k, d in enumerate(("cuda", "cpu"))]
+            try:
+                r = run_lifecycle_script(cl, lanes=True, **LIFECYCLE_LANES)
+            finally:
+                for c in cl:
+                    c.close()
+        if r["copied"][0] != r["copied"][1]:
+            raise AssertionError(f"lifecycle pipeline={pipeline}: copies "
+                                 f"{r['copied']} differ (CUDA, CPU)")
+        log(f"[runtime-parity] lifecycle and install, pipeline={pipeline}: "
+            f"{cfg.n_groups} groups x 3 RaftNodes, FileMachines, CUDA == "
+            f"CPU on every lane of every node's state, step info and "
+            f"outbox at every one of {r['rounds']} rounds; killed node "
+            f"{r['victim']}, floor past its tail after {r['loads']} loads, "
+            f"an install in every group ({int(r['installs'][0].sum())} "
+            f"installs of {r['fetched'][0]} downloads); lanes closed "
+            f"{LIFECYCLE_LANES['closed']} and purged "
+            f"{LIFECYCLE_LANES['purged']} before and after it; _adopt "
+            f"copied {r['copied'][0]} leaves on the rounds {r['writes']} "
+            f"after lifecycle writes (both devices) and none on any other; "
+            f"machine files byte-equal across nodes and devices; "
+            f"{time.perf_counter() - t0:.1f}s")
+    _graph_parity("lifecycle and install", cfg, lifecycle=True)
+
+
+def _graph_parity(label: str, cfg, lifecycle: bool = False) -> None:
+    """The replayed step against the uncaptured one on the card, through
+    ``run_script`` or, with ``lifecycle``, ``run_lifecycle_script``."""
     import tempfile
     from rafting_tpu_torch import LocalCluster
-    from rafting_tpu_torch.testkit.lockstep import pinned_env, run_script
+    from rafting_tpu_torch.testkit.lockstep import (
+        pinned_env, run_lifecycle_script, run_script,
+    )
     table = _state_table(cfg)
     checked = [0]
+    extra = dict(maintain_factory=_maintain_factory(cfg.n_groups)) \
+        if lifecycle else {}
     with tempfile.TemporaryDirectory() as root, pinned_env():
         t0 = time.perf_counter()
-        cl = [LocalCluster(cfg, os.path.join(root, d), device="cuda")
+        cl = [LocalCluster(cfg, os.path.join(root, d), device="cuda",
+                           **extra)
               for d in ("eager", "graph")]
         for n in cl[0].nodes.values():
             n._stepper.capture = False
@@ -979,7 +1083,8 @@ def _graph_parity(label: str, cfg) -> None:
                                          f"its step's views")
             c.start_node, c.tick = start_node, tick
         try:
-            r = run_script(cl, lanes=True)
+            r = run_lifecycle_script(cl, lanes=True, **LIFECYCLE_LANES) \
+                if lifecycle else run_script(cl, lanes=True)
         finally:
             for c in cl:
                 c.close()
@@ -990,10 +1095,18 @@ def _graph_parity(label: str, cfg) -> None:
         raise AssertionError("a closed node still holds its step's graphs "
                              "or buffers")
     replay_s = sum(st.replay_s for st in steppers[1])
-    # The script replaces no lane of any node (no lifecycle write, no
-    # purge), so after each node's first step _adopt copies nothing.
+    # run_script replaces no lane of any node (no lifecycle write, no
+    # purge), so after each node's first step _adopt copies nothing; the
+    # lifecycle script gates its copies per round itself (a copy on
+    # exactly the rounds after a lifecycle write), and the two clusters
+    # copy the same.
     copied = [sum(st.copied for st in ss) for ss in steppers]
-    if any(copied):
+    if lifecycle and (r["copied"][0] != r["copied"][1]
+                      or copied[0] != copied[1] or not copied[0]):
+        raise AssertionError(f"{label}: _adopt copied {r['copied']} "
+                             f"leaves after the lifecycle writes "
+                             f"(uncaptured, replayed), {copied} in all")
+    if not lifecycle and any(copied):
         raise AssertionError(f"{label}: _adopt copied {copied} static "
                              f"leaves (uncaptured, replayed) on ticks where "
                              f"no node replaced a lane")
@@ -1013,7 +1126,11 @@ def _graph_parity(label: str, cfg) -> None:
         f"reference's [G] shapes ({len(table)} leaves) and the step's own "
         f"views after every round ({checked[0]} node checks); _adopt "
         f"copied {copied[0]} + {copied[1]} static leaves after the first "
-        f"steps; a round of three node ticks took "
+        f"steps" + (f" ({r['copied'][1]} on the rounds {r['writes']} after "
+                    f"lifecycle writes, none on any other; an install in "
+                    f"every group of node {r['victim']})"
+                    if lifecycle else "") + "; a round of three node "
+        f"ticks took "
         f"{spent[0] / r['rounds'] * 1e3:.1f} ms uncaptured, "
         f"{spent[1] / r['rounds'] * 1e3:.1f} ms replayed, of which "
         f"{replay_s / max(reps[1], 1) * 1e3:.3f} ms of host time per "
@@ -1791,6 +1908,174 @@ def _api_health(nodes, idx: np.ndarray, now0: dict) -> list:
     return lines
 
 
+class _NotReadyTrace:
+    """Where an ``[api-1k]`` wave's ``NotReadyError``s come from: each
+    refusal a node's ``_refusal`` returns, with the node's tick, and after
+    each of a node's ticks its leaders' peer-health lanes (``fail_at``,
+    ``fail_streak``, ``ok_at``, ``need_snap`` of the phase's lanes; the
+    refusal reads the readiness of the node's last fetched tick).  The
+    record is read on the tick thread after the tick's fetch; it changes
+    nothing the node does."""
+
+    KEEP = 600                   # ticks of lanes kept per node
+
+    def __init__(self, nodes, idx: np.ndarray):
+        import collections
+        self.idx = torch.as_tensor(idx, dtype=torch.long)
+        self.pos = {int(lane): j for j, lane in enumerate(idx)}
+        self.refused: list = []      # (node, lane, node tick, wall)
+        self.lanes = {n.node_id: collections.OrderedDict() for n in nodes}
+        self.cfg = nodes[0].cfg
+        for n in nodes:
+            self._hook(n)
+
+    def _hook(self, node) -> None:
+        from rafting_tpu_torch.api import NotReadyError
+        real_refusal, real_fetch = node._refusal, node._fetch
+        nid, rec = node.node_id, self.lanes[node.node_id]
+        idx = self.idx.to(node.device)
+
+        def _refusal(group):
+            err = real_refusal(group)
+            if isinstance(err, NotReadyError):
+                self.refused.append((nid, int(group), node.ticks,
+                                     time.perf_counter()))
+            return err
+
+        def _fetch(ctx):
+            real_fetch(ctx)
+            s = node.state
+            rec[node.ticks] = (
+                time.perf_counter(), int(s.now),
+                s.fail_at[idx].cpu().numpy(),
+                s.fail_streak[idx].cpu().numpy(),
+                s.ok_at[idx].cpu().numpy(),
+                s.need_snap[idx].cpu().numpy())
+            while len(rec) > self.KEEP:
+                rec.popitem(last=False)
+        node._refusal, node._fetch = _refusal, _fetch
+
+    def _at(self, nid: int, tick: int):
+        """The lanes node ``nid`` fetched last at or before its tick
+        count ``tick``."""
+        rec = self.lanes[nid]
+        best = None
+        for t in list(rec):
+            if t <= tick:
+                best = t
+        return None if best is None else rec[best]
+
+    def _replies(self, nid: int, p: int, at: int, lanes) -> str:
+        """How many of node ``nid``'s ticks after the send each of
+        ``lanes``' first reply from peer ``p`` at or after the timeout at
+        tick ``at`` came (``ok_at``), counted over the record."""
+        sent = at - self.cfg.rpc_timeout_ticks
+        first: dict = {}
+        for _, now, _, _, ok, _ in list(self.lanes[nid].values()):
+            for lane in lanes:
+                j = self.pos[lane]
+                if lane not in first and ok[j, p] >= at:
+                    first[lane] = int(ok[j, p]) - sent
+        hist: dict = {}
+        for lane in lanes:
+            k = first.get(lane, "none in the record")
+            hist[k] = hist.get(k, 0) + 1
+        return ", ".join(f"{k}: {v}" for k, v in sorted(
+            hist.items(), key=lambda kv: str(kv[0])))
+
+    def _wall(self, nid: int, now: int) -> "float | None":
+        """Wall time of node ``nid``'s tick whose device clock read
+        ``now``."""
+        for wall, n_now, *_ in list(self.lanes[nid].values()):
+            if n_now == now:
+                return wall
+        return None
+
+    def report(self, lo: float, hi: float, tick_log: dict,
+               gcw: "_GcPauses") -> list:
+        """Lines on the refusals in [lo, hi]: their count by leader node;
+        per leader and peer, the refused groups that counted the peer
+        unhealthy and why (an RPC timeout within ``recovery_ticks``, a
+        fail streak past ``avail_crit``, no reply yet, a pending
+        snapshot); the RPC timeouts behind them (the leader's tick of
+        each, the groups it timed out); and over the window from each
+        such send to its timeout, the peer's ticks (count, p50, max) and
+        the collector's pauses."""
+        cfg = self.cfg
+        ref = [r for r in list(self.refused) if lo <= r[3] <= hi]
+        if not ref:
+            return ["NotReadyError: none"]
+        by_node: dict = {}
+        for nid, lane, tick, _ in ref:
+            by_node.setdefault(nid, []).append((lane, tick))
+        lines = [f"NotReadyError: {len(ref)} (" + ", ".join(
+            f"leader node{k} {len(v)}" for k, v in sorted(by_node.items()))
+            + ")"]
+        for nid, items in sorted(by_node.items()):
+            why: dict = {}
+            timeouts: dict = {}
+            for lane, tick in items:
+                got = self._at(nid, tick)
+                if got is None:
+                    continue
+                _, now, fa, fs, ok, snap = got
+                j = self.pos[lane]
+                for p in range(cfg.n_peers):
+                    if p == nid:
+                        continue
+                    recent = fa[j, p] > 0 and \
+                        now - fa[j, p] < cfg.recovery_ticks
+                    reasons = [name for name, hit in (
+                        ("timeout", recent),
+                        ("streak", fs[j, p] > cfg.avail_crit),
+                        ("no reply", bool(ok[j, p] == 0)),
+                        ("snapshot", bool(snap[j, p]))) if hit]
+                    for r in reasons or ["healthy"]:
+                        key = (p, r)
+                        why[key] = why.get(key, 0) + 1
+                    if recent:
+                        timeouts.setdefault((p, int(fa[j, p])),
+                                            set()).add(lane)
+            peers = sorted({p for p, _ in why})
+            lines.append(
+                f"leader node{nid} ({len(items)} refusals in "
+                f"{len({lane for lane, _ in items})} groups; per peer the "
+                f"refusals that counted it unhealthy, by cause): " + "; ".join(
+                    f"peer{p} " + ", ".join(
+                        f"{r} {n}" for (q, r), n in sorted(why.items())
+                        if q == p) for p in peers))
+            for (p, at), gs_ in sorted(timeouts.items(),
+                                       key=lambda kv: -len(kv[1]))[:4]:
+                n = len(gs_)
+                t1 = self._wall(nid, at)
+                t0 = self._wall(nid, at - cfg.rpc_timeout_ticks)
+                if t1 is None or t0 is None:
+                    lines.append(f"  node{nid} -> peer{p}: {n} groups timed "
+                                 f"out at its tick {at} (outside the "
+                                 f"record)")
+                    continue
+                d = sorted(r[1] for r in list(tick_log.get(p, []))
+                           if t0 <= r[0] <= t1)
+                mine = sorted(r[1] for r in list(tick_log.get(nid, []))
+                              if t0 <= r[0] <= t1)
+                gcs = gcw.within(t0, t1)
+                lines.append(
+                    f"  node{nid} -> peer{p}: {n} groups timed out at its "
+                    f"tick {at}, {(t1 - t0) * 1e3:.0f} ms after the send "
+                    f"({cfg.rpc_timeout_ticks} of its ticks: "
+                    + (f"p50 {_quantile(mine, 0.5) * 1e3:.0f} ms" if mine
+                       else "none ended")
+                    + f"); peer{p} ended {len(d)} ticks in that window"
+                    + (f" (p50 {_quantile(d, 0.5) * 1e3:.0f} ms, max "
+                       f"{d[-1] * 1e3:.0f} ms)" if d else "")
+                    + f"; gc pauses {len(gcs)} "
+                    f"({sum(g[1] for g in gcs) * 1e3:.0f} ms); the first "
+                    f"reply at or after the timeout came this many of its "
+                    f"ticks after the send: " + self._replies(nid, p, at,
+                                                              gs_))
+        return lines
+
+
 def _qc_device_us(trace: str) -> tuple:
     """Mean device time of the quorum kernel's launches, their count, and
     the kernels' share of the window, from a chrome trace."""
@@ -1865,6 +2150,7 @@ def phase_api_1k() -> dict:
         for c in cs:
             _record_ticks(c.node, tick_log[c.node.node_id])
         gcw = _GcPauses()
+        nrt = _NotReadyTrace([c.node for c in cs], idx)
         # The last wave's start: its wall time and each node's tick clock.
         last_wave = {"t": time.perf_counter(), "now": {}}
 
@@ -1996,6 +2282,9 @@ def phase_api_1k() -> dict:
             last_wave.update(t=tw, now={n.node_id: int(n.state.now)
                                         for n in nodes})
             st = wave(w)
+            # Where the wave's NotReadyErrors came from (PERF.md §7).
+            for line in nrt.report(tw, time.perf_counter(), tick_log, gcw):
+                log(f"[api-1k]   {label} wave {w}: {line}")
             served = (st["set"] > 0) & st["get"]
             share = (float(served.mean()), float(served[st["fwd"]].mean()))
             with lock:
@@ -2343,6 +2632,397 @@ def phase_snapshot() -> dict:
         f"{peak / 2**30:.3f} GiB; quorum_commit {launches} launches, "
         f"{_kernel_line(kern)}")
     return kern
+
+
+# [install]: BASELINE.json configs[4]'s durable half ("100k groups with
+# InstallSnapshot lagging-follower catch-up") through three RaftNodes over
+# localhost TCP on the card, pipelined, FileMachine per group, the
+# reference's default MaintainAgreement (64 / 16 / 20 / 10 / 8) and
+# [runtime]'s engine.  Cut from 100k groups to 256: a durable node tick
+# takes 0.5-1 s at 10k and has a p50 of 8.4 s at 100k (PERF.md §5); at
+# 1,024 groups the phase alone took 207-307 s on an H100 host (the
+# survivors' checkpoints and the restarted node's installs fsync per
+# group, PERF.md §6), and the script already takes 745-1,044 s of its
+# 1,200, so the phase has 90 s.  The device half runs at 100k in
+# [snapshot].
+INSTALL_GROUPS = 256
+INSTALL_BURST = 8
+INSTALL_SAMPLE = 64          # groups whose acknowledged writes are read back
+INSTALL_LIFECYCLE = 64       # groups closed on every node, half purged
+INSTALL_MAX_ROUNDS = 300     # bound of each wait, in rounds
+
+
+def phase_install(device: str = "cuda", groups: int = INSTALL_GROUPS,
+                  pipeline: bool = True) -> dict:
+    """See the module docstring.  ``device``, ``groups`` and ``pipeline``
+    are for a rehearsal on the CPU (tests/test_torch_install.py)."""
+    import tempfile
+    from rafting_tpu_torch import LEADER, EngineConfig, LocalCluster
+    from rafting_tpu_torch.ops import quorum
+    from rafting_tpu_torch.testkit.lockstep import (
+        file_payloads, machine_bytes, record_installs,
+    )
+
+    cfg = EngineConfig(n_groups=groups, n_peers=3, log_slots=512, batch=32,
+                       max_submit=32, election_ticks=10, heartbeat_ticks=3,
+                       rpc_timeout_ticks=8, pre_vote=True)
+    G = cfg.n_groups
+    on_card = device == "cuda"
+    rng = np.random.default_rng(0)
+    sample = set(rng.choice(G, INSTALL_SAMPLE, replace=False).tolist())
+    life = rng.choice(G, INSTALL_LIFECYCLE, replace=False)
+    purged = set(life[:INSTALL_LIFECYCLE // 2].tolist())
+    shut = set(life[INSTALL_LIFECYCLE // 2:].tolist())
+    ticks = 0
+    tick_s: dict = {}            # node -> seconds of each tick, this window
+    writes: set = set()          # nodes with a lifecycle write not yet ticked
+    copies = {"write": [], "other": 0}   # leaves copied on those ticks
+    sinks: list = []             # (group, payloads, handle, node), sampled
+    fetches = {"calls": 0, "bytes": 0, "tcp": True}
+
+    def tick_round():
+        nonlocal ticks
+        for i, n in list(c.nodes.items()):
+            st, before = n._stepper, n._stepper.copied
+            t0 = time.perf_counter()
+            n.tick()
+            tick_s.setdefault(i, []).append(time.perf_counter() - t0)
+            d = st.copied - before
+            if i in writes:
+                copies["write"].append(d)
+                writes.discard(i)
+            else:
+                copies["other"] += d
+        ticks += len(c.nodes)
+
+    def leaders():
+        return (np.stack([n.h_role for n in c.nodes.values()])
+                == LEADER).sum(axis=0)
+
+    def uneven():
+        """Groups whose commit differs across the live nodes."""
+        hc = np.stack([n.h_commit for n in c.nodes.values()])
+        return (hc != hc[0:1]).any(axis=0)
+
+    def offer(r, only=None, keep=None):
+        """A burst to every led, ready group (of ``only``); the handles
+        of the sampled groups go to ``keep``."""
+        burst = [f"i{r:04d}-{j:02d}-".encode().ljust(64, b"x")
+                 for j in range(INSTALL_BURST)]
+        for n in c.nodes.values():
+            led = (n.h_role == LEADER) & n.h_ready & n.h_active
+            if only is not None:
+                led &= only
+            hs = n.submit_batch_many(np.nonzero(led)[0], burst)
+            for g, h in zip(np.nonzero(led)[0].tolist(), hs):
+                if only is not None or g in sample:
+                    (sinks if keep is None else keep).append((g, burst, h, n))
+
+    def read_back(files, handles) -> int:
+        """Every acknowledged write of ``handles`` once in every node's
+        machine file of its group; the count."""
+        acked, lines = 0, {}
+        for g, burst, h, _ in handles:
+            f = h.future
+            if f.exception() is not None:
+                continue
+            for i in c.nodes:
+                if (i, g) not in lines:
+                    lines[(i, g)] = Counter(files[(i, g)].splitlines())
+            for idx, p in zip(f.result(), burst):
+                acked += 1
+                line = f"{idx}:".encode() + p
+                for i in c.nodes:
+                    hits = lines[(i, g)][line]
+                    if hits != 1:
+                        raise AssertionError(
+                            f"[install] acknowledged write {line[:24]!r} "
+                            f"of group {g} found {hits} times in node "
+                            f"{i}'s machine file")
+        return acked
+
+    def until(pred, what, load=None, lag=None):
+        k = 0
+        while not pred():
+            if k >= INSTALL_MAX_ROUNDS:
+                raise AssertionError(f"[install] {what} not reached in "
+                                     f"{k} rounds" + (lag() if lag else ""))
+            if load is not None:
+                load()
+            tick_round()
+            k += 1
+        return k
+
+    def set_lanes(lanes, active, purge=False):
+        for i, n in c.nodes.items():
+            for g in lanes:
+                n.set_active(int(g), active, purge=purge)
+            writes.add(i)
+
+    def wrap_fetch(node):
+        tr, real = node.transport, node.transport.fetch_snapshot
+        fetches["tcp"] &= type(tr).__name__ == "TcpTransport"
+
+        def fetch_snapshot(peer, group, index, term, dest_path, *a, **k):
+            res = real(peer, group, index, term, dest_path, *a, **k)
+            fetches["calls"] += 1
+            if res is not None and os.path.exists(dest_path):
+                fetches["bytes"] += os.path.getsize(dest_path)
+            return res
+        tr.fetch_snapshot = fetch_snapshot
+
+    root = tempfile.mkdtemp(prefix="install-")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    quorum.reset_launch_counts()
+    t_phase = time.perf_counter()
+    c = LocalCluster(cfg, root, seed=0, transport="tcp", pipeline=pipeline,
+                     device=device)
+    r = 0
+
+    def load():
+        nonlocal r
+        offer(r)
+        r += 1
+    try:
+        steppers = {i: [n._stepper] for i, n in c.nodes.items()}
+        settle = until(lambda: (leaders() == 1).all(),
+                       "one leader in every group")
+        for _ in range(3):
+            load()
+            tick_round()
+
+        # The node leading the fewest groups dies; the survivors load on
+        # until their WAL floor has passed its log tail in every group.
+        led = {i: int((n.h_role == LEADER).sum())
+               for i, n in c.nodes.items()}
+        victim = min(led, key=led.get)
+        vn = c.nodes[victim]
+        tail = np.maximum(vn.state.log.last.cpu().numpy().astype(np.int64),
+                          [vn.store.tail(g) for g in range(G)])
+        c.kill_node(victim)
+        # What the dead node was offered has no outcome a client hears.
+        sinks[:] = [x for x in sinks if x[3] is not vn]
+        surv = list(c.nodes.values())
+        t0 = time.perf_counter()
+        floor_rounds = until(
+            lambda: all((n.h_base.astype(np.int64) > tail).all()
+                        for n in surv),
+            "both survivors' WAL floor past the victim's tail in every "
+            "group", load=load,
+            lag=lambda: "; groups lagging on " + ", ".join(
+                f"node {n.node_id}: "
+                f"{int((n.h_base.astype(np.int64) <= tail).sum())}"
+                for n in surv))
+        floor_s = time.perf_counter() - t0
+
+        installs = record_installs(c)
+        real_start = c.start_node
+
+        def start_node(i):
+            n = real_start(i)
+            wrap_fetch(n)
+            steppers.setdefault(i, []).append(n._stepper)
+            return n
+        c.start_node = start_node
+        top = np.max([n.h_commit for n in surv], axis=0)
+        for n in c.nodes.values():
+            for h in [n.metrics.histogram("tick_latency_s")] + [
+                    n.metrics.histogram(f"tick_stage_{s}")
+                    for s in n.metrics.breakdown()]:
+                h.reset()
+        tick_s.clear()
+        c.restart_node(victim)
+        vnode = c.nodes[victim]
+        t0 = time.perf_counter()
+        catch_rounds = until(
+            lambda: (installs[victim]["groups"] > 0).all()
+            and (vnode.h_commit >= top).all(),
+            "the restarted node installed in every group and passed the "
+            "survivors' commit at its restart", load=load,
+            lag=lambda: f"; {int((installs[victim]['groups'] == 0).sum())}"
+            f" groups without an install, "
+            f"{int((vnode.h_commit < top).sum())} behind")
+        catch_s = time.perf_counter() - t0
+        window = {i: sorted(v) for i, v in tick_s.items()}
+        stage = {i: n.metrics.breakdown().get("maintain_s", {}).get("mean", 0)
+                 for i, n in c.nodes.items()}
+
+        drain = until(
+            lambda: not uneven().any() and (leaders() == 1).all()
+            and all(h.future.done() for _, _, h, _ in sinks),
+            "the drain (commits equal on all nodes, one leader per group, "
+            "every sampled write settled)",
+            lag=lambda: f"; groups with differing commits "
+            f"{int(uneven().sum())}, without one leader "
+            f"{int((leaders() != 1).sum())}, sampled writes pending "
+            f"{sum(not h.future.done() for _, _, h, _ in sinks)}")
+        files = machine_bytes(c)
+        for _ in range(INSTALL_MAX_ROUNDS):
+            differ = [g for g in range(G) if len(
+                {files[(i, g)] for i in c.nodes}) != 1]
+            if not differ:
+                break
+            tick_round()
+            files = machine_bytes(c)
+        if differ:
+            raise AssertionError(f"[install] machine files differ across "
+                                 f"nodes in {len(differ)} groups, first "
+                                 f"{differ[:8]}")
+        acked = read_back(files, sinks)
+        if acked == 0:
+            raise AssertionError("[install] no acknowledged write in the "
+                                 "sample")
+        inst = installs[victim]
+        per_group = inst["groups"]
+        got = int(vnode.metrics["snapshots_installed"])
+        if (per_group == 0).any() or got != int(per_group.sum()) or \
+                inst["failed"] or \
+                inst["fetched"] != int(per_group.sum()) + inst["stale"]:
+            raise AssertionError(
+                f"[install] installs: {int((per_group == 0).sum())} groups "
+                f"without one, metric {got}, {inst['fetched']} downloads "
+                f"for {int(per_group.sum())} installs, {inst['stale']} "
+                f"stale, {inst['failed']} failed")
+        if not fetches["tcp"] or fetches["calls"] < int(per_group.sum()):
+            raise AssertionError(f"[install] {fetches['calls']} snapshot "
+                                 f"fetches over TCP "
+                                 f"({fetches['tcp']}) for "
+                                 f"{int(per_group.sum())} installs")
+
+        log(f"[install] BASELINE configs[4] durable: {G} groups x 3 "
+            f"RaftNodes over TCP, pipelined, FileMachine, default "
+            f"MaintainAgreement: one leader per group after {settle} "
+            f"rounds; killed node {victim} (led {led[victim]} groups); "
+            f"both survivors' WAL floor past its tail in every group "
+            f"after {floor_rounds} rounds ({floor_s:.1f}s); restarted, "
+            f"an install in every group and past the survivors' commit "
+            f"after {catch_rounds} rounds ({catch_s:.1f}s), drained in "
+            f"{drain}; {int(per_group.sum())} installs ({got} by the "
+            f"metric; {inst['stale']} downloads superseded, none failed), "
+            f"{fetches['calls']} fetches over TCP streaming "
+            f"{fetches['bytes']} bytes; machine files byte-equal on 3 "
+            f"nodes in all {G} groups; {acked} acknowledged writes of "
+            f"{INSTALL_SAMPLE} sampled groups read back once from every "
+            f"node")
+        q = lambda xs, p: xs[min(len(xs) - 1, int(p * len(xs)))]
+        log(f"[install] node tick during the catch-up (ms, p50 / max): " +
+            ", ".join(f"node {i} {q(v, 0.5) * 1e3:.1f} / {v[-1] * 1e3:.1f}"
+                      f" (maintain mean {stage[i] * 1e3:.1f})"
+                      for i, v in sorted(window.items())))
+
+        # The group lifecycle at this scale: 64 sampled groups closed on
+        # every node, half of them purged (close_context with
+        # destroy_group); reopened and loaded again.
+        old = files
+        set_lanes(sorted(shut), False)
+        set_lanes(sorted(purged), False, purge=True)
+        for _ in range(4):
+            tick_round()
+        set_lanes(sorted(shut | purged), True)
+        mask = np.zeros(G, bool)
+        mask[list(shut | purged)] = True
+        life_rounds = until(
+            lambda: (leaders()[mask] == 1).all() and all(
+                bool(n.h_ready[g]) for n in c.nodes.values()
+                for g in np.nonzero(mask)[0].tolist()
+                if n.h_role[g] == LEADER),
+            "the reopened groups led and ready")
+        # A burst to each reopened group, again where one was refused (a
+        # leader evacuated by the health plane), until each has one
+        # acknowledged.
+        reload: list = []
+        todo = mask.copy()
+        for _ in range(INSTALL_MAX_ROUNDS):
+            sent: list = []
+            offer(r, only=todo, keep=sent)
+            r += 1
+            until(lambda: all(h.future.done() for _, _, h, _ in sent),
+                  "the reopened groups' writes settled")
+            for g, burst, h, n in sent:
+                if h.future.exception() is None:
+                    reload.append((g, burst, h, n))
+                    todo[g] = False
+            if not todo.any():
+                break
+            tick_round()
+        until(lambda: not uneven().any(),
+              "commits equal on all nodes after the reload")
+        for _ in range(INSTALL_MAX_ROUNDS):
+            files = machine_bytes(c)
+            if all(len({files[(i, g)] for i in c.nodes}) == 1
+                   for g in range(G)):
+                break
+            tick_round()
+        for g in sorted(shut | purged):
+            for i in c.nodes:
+                had = set(file_payloads(old[(i, g)])) - {b""}
+                now = set(file_payloads(files[(i, g)]))
+                if g in purged and (not had or had & now
+                                    or not files[(i, g)]):
+                    raise AssertionError(f"[install] purged group {g} on "
+                                         f"node {i} kept its history or "
+                                         f"served nothing after reuse")
+                if g in shut and not files[(i, g)].startswith(old[(i, g)]):
+                    raise AssertionError(f"[install] closed group {g} on "
+                                         f"node {i} lost its history")
+            if len({files[(i, g)] for i in c.nodes}) != 1:
+                raise AssertionError(f"[install] group {g}'s machine "
+                                     f"files differ after the lifecycle")
+        reloaded = read_back(files, reload)
+        if {g for g, *_ in reload} != shut | purged or \
+                reloaded != INSTALL_BURST * len(shut | purged):
+            raise AssertionError(
+                f"[install] {reloaded} of "
+                f"{INSTALL_BURST * len(shut | purged)} writes to the "
+                f"reopened groups acknowledged")
+        if not all(d > 0 for d in copies["write"]) or copies["other"]:
+            raise AssertionError(
+                f"[install] leaves copied into the static state: "
+                f"{copies['write']} on the ticks after a lifecycle write, "
+                f"{copies['other']} on the others")
+        # A leadership transfer (the health plane's evacuation) may be in
+        # flight: one leader per group again within the bound.
+        until(lambda: (leaders() == 1).all(),
+              "exactly one leader in every group at the end",
+              lag=lambda: f"; {int((leaders() != 1).sum())} groups without")
+        launches = _launches("install")
+        if launches != ticks:
+            raise AssertionError(f"[install] quorum kernel launched "
+                                 f"{launches} times in {ticks} node ticks "
+                                 f"(want one per tick)")
+        all_st = [st for ss in steppers.values() for st in ss]
+        replays = sum(st.replays for st in all_st)
+        later = []
+        for i, ss in sorted(steppers.items()):
+            for st in ss:
+                base = {(k, nm) for k, nm, _, _ in st.layouts[0][0]} \
+                    if st.layouts else set()
+                for key, _, cap in st.layouts[1:]:
+                    extra = {(k, nm) for k, nm, _, _ in key} - base
+                    later.append(f"node {i}: +{sorted(extra)} "
+                                 f"({cap * 1e3:.0f} ms)")
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        kern = _kernel_entry("quorum_commit[install]", launches)
+        log(f"[install] lifecycle: {len(purged)} groups purged and "
+            f"{len(shut)} closed on every node, reopened and led after "
+            f"{life_rounds} rounds, {reloaded} writes to them "
+            f"acknowledged and read back; purged files restarted from "
+            f"scratch, closed ones kept their history; "
+            f"_adopt copied {copies['write']} leaves on the ticks after a "
+            f"lifecycle write and {copies['other']} on the other "
+            f"{ticks - len(copies['write'])}, the install ticks among them")
+        log(f"[install] {ticks} node ticks, quorum_commit {launches} "
+            f"launches ({replays} in replays); captures per node " +
+            ", ".join(f"{i}: {[st.captures for st in ss]}"
+                      for i, ss in sorted(steppers.items())) +
+            f"; captured after boot: {later or 'none'}; peak memory "
+            f"{peak / 2**30:.3f} GiB; {_kernel_line(kern)}; "
+            f"{time.perf_counter() - t_phase:.1f}s")
+        return kern
+    finally:
+        c.close()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # [chaos]: the chaos_run twin (rafting_tpu_torch/tools/chaos_run.py) on
@@ -2956,8 +3636,8 @@ def main() -> int:
     _release_host_memory()
     log(f"[mem] released: {_mem()}")
     _timed(phase_api_testnode)
-    for phase in (phase_api_1k, phase_oracle, phase_snapshot, phase_chaos,
-                  phase_config4):
+    for phase in (phase_api_1k, phase_oracle, phase_snapshot, phase_install,
+                  phase_chaos, phase_config4):
         kernels.append(_timed(phase))
     kernels += _timed(phase_shard)
     kernels += _timed(phase_stages)

@@ -368,6 +368,17 @@ class RaftNode:
             else:
                 pipeline = self.device.type != "cpu"
         self.pipeline = bool(pipeline)
+        if self.pipeline and cfg.rpc_timeout_ticks < 4:
+            # A container's timing gives the 3-tick deadline of a lockstep
+            # round trip, but a pipelined follower sends its reply a tick
+            # after the tick that handled the request (behind its fsync).
+            # On free-running nodes the reply then reached the leader past
+            # the deadline whenever a follower tick ran long, whole frames
+            # timed out together, and the leader lost its healthy majority
+            # in every group it led (NotReadyError; a fault of the
+            # reference).  A pipelined node waits one tick longer.
+            import dataclasses
+            cfg = self.cfg = dataclasses.replace(cfg, rpc_timeout_ticks=4)
         if wal_shards is None:
             wal_shards = int(os.environ.get("RAFT_WAL_SHARDS", "4"))
         if host_workers is None:
@@ -3791,8 +3802,18 @@ class RaftNode:
         ``ep`` is the lane's fetch epoch at dispatch: if a purge bumped it
         while the fetch was in flight, this download belongs to a dead
         incarnation — it must neither surface its bytes, nor fail the NEW
-        incarnation's pending, nor cancel its in-flight marker."""
-        tmp = os.path.join(self.data_dir, f"snap-recv-g{g}-e{ep}.tmp")
+        incarnation's pending, nor cancel its in-flight marker.
+
+        Each download gets a file of its own: once this one is handed to
+        the tick, a newer one of the same group may start before the tick
+        installs this file, and a name shared by the group's downloads
+        (the reference's, by group and epoch) lets it truncate and rewrite
+        the file being installed, so an install could archive another
+        milestone's bytes, or part of them, under this one's index."""
+        import tempfile
+        fd, tmp = tempfile.mkstemp(prefix=f"snap-recv-g{g}-e{ep}-",
+                                   suffix=".tmp", dir=self.data_dir)
+        os.close(fd)
         ok = False
 
         def current() -> bool:
@@ -3828,8 +3849,16 @@ class RaftNode:
         """Tick thread: install downloaded snapshots (reference
         restoreCheckpoint, context/RaftRoutine.java:482-541).  Applies and
         installs run on the same thread, so the reference's halt-the-apply-
-        pool dance is unnecessary by construction."""
-        done = []
+        pool dance is unnecessary by construction.
+
+        The WAL floors of every snapshot installed here are made durable by
+        ONE barrier, before any of them is handed to the device.  The
+        reference runs a barrier per install (a sync of every WAL stripe
+        each): a node restarted behind the floor in all of its groups then
+        spends one tick on thousands of fsyncs (17 s for 1,024 groups on
+        the card's host).  A failed barrier fails the tick's installs
+        together, as each install's own barrier would have failed."""
+        staged = []
         for g, got_idx, got_term, tmp in fetched:
             try:
                 # The lane may have been closed/destroyed while the fetch
@@ -3860,18 +3889,7 @@ class RaftNode:
                 self._wal_floor[g] = max(self._wal_floor[g], snap.index)
                 self._durable_tail_m[g] = max(self._durable_tail_m[g],
                                               snap.index)
-                try:
-                    self._barrier()   # poisoned stripes carved out
-                    self._barrier_ok()
-                except (WalNoSpace, WalSyncError):
-                    # Keep the flush pending; the installed archive file
-                    # itself is already durable, so the retried fetch
-                    # (device re-requests) converges once space frees.
-                    self._sync_pending = True
-                    raise
-                self.maintain.note_checkpoint(g, self.ticks, snap.index)
-                self.metrics["snapshots_installed"] += 1
-                done.append((g, snap.index, snap.term, cw))
+                staged.append((g, snap, cw))
             except Exception:
                 log.exception("snapshot install failed g=%d", g)
                 self.archive.clear_pending(g)
@@ -3880,6 +3898,25 @@ class RaftNode:
                     os.unlink(tmp)
                 except OSError:
                     pass
+        if not staged:
+            return []
+        try:
+            self._barrier()   # poisoned stripes carved out
+            self._barrier_ok()
+        except Exception as exc:
+            if isinstance(exc, (WalNoSpace, WalSyncError)):
+                # Keep the flush pending; the installed archive files
+                # themselves are already durable, so the retried fetches
+                # (the device re-requests) converge once space frees.
+                self._sync_pending = True
+            log.exception("snapshot install barrier failed for %d "
+                          "group(s)", len(staged))
+            return []
+        done = []
+        for g, snap, cw in staged:
+            self.maintain.note_checkpoint(g, self.ticks, snap.index)
+            self.metrics["snapshots_installed"] += 1
+            done.append((g, snap.index, snap.term, cw))
         return done
 
     # -------------------------------------------------------------- recovery

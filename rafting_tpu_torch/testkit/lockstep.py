@@ -16,6 +16,17 @@ the survivors, submit again; restart the killed node from its WAL and
 drain.  At the end every cluster's machine files are compared byte for
 byte.
 
+The second script (``run_lifecycle_script``) drives the snapshot plane
+and the group lifecycle: lanes closed and reopened, lanes purged (a
+destroyed group) and reused, then the node leading the fewest groups
+killed while the survivors load and compact until their WAL floor has
+passed its log tail in every group, restarted, and caught up by a
+snapshot install in every group; then a second round of closes and
+purges.  Besides the per-round checks it holds the installs, the machine
+files of every node and the copies each port node's step made into its
+static state (``NodeStepper.copied``): a copy on exactly the rounds that
+follow a lifecycle write, none on any other round.
+
 With ``lanes=True`` each round also holds every node's whole engine state
 and the step info and outbox of its last tick equal across the clusters,
 exactly: shape and value, with the PRNG key compared as integers (the
@@ -40,7 +51,7 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -136,6 +147,67 @@ def _record_fetches(cluster) -> dict:
     return last
 
 
+def _copy_counts(cluster) -> Optional[dict]:
+    """stepper -> leaves its ``_adopt`` copied so far, for every live node
+    of ``cluster``; None for a cluster whose nodes carry no stepper (the
+    reference's)."""
+    steppers = [getattr(n, "_stepper", None) for n in cluster.nodes.values()]
+    if any(st is None for st in steppers):
+        return None
+    return {st: st.copied for st in steppers}
+
+
+def _copied_since(cluster, before: Optional[dict]) -> Optional[int]:
+    now = _copy_counts(cluster)
+    if now is None or before is None:
+        return None
+    return sum(v - before.get(st, 0) for st, v in now.items())
+
+
+def record_installs(cluster) -> dict:
+    """node id -> {"fetched": downloads handed to the tick, "stale":
+    those it dropped (the lane closed, the group's pending record gone,
+    or taken by an earlier download of the group in the same call: each
+    install ends it), "failed": those whose install raised, "groups":
+    [G] installs per group}, for every node of ``cluster``, restarts
+    included."""
+    G = cluster.cfg.n_groups
+    out: dict = {}
+
+    def hook(node):
+        rec = out.setdefault(node.node_id, {
+            "fetched": 0, "stale": 0, "failed": 0,
+            "groups": np.zeros(G, np.int64)})
+        real = node._install_snapshots
+
+        def _install_snapshots(fetched):
+            stale, seen = 0, set()
+            for item in fetched:
+                g = int(item[0])
+                stale += g in seen or not node.h_active[g] \
+                    or node.archive.pending(g) is None
+                seen.add(g)
+            done = real(fetched)
+            rec["fetched"] += len(fetched)
+            rec["stale"] += stale
+            rec["failed"] += len(fetched) - stale - len(done)
+            for d in done:
+                rec["groups"][int(d[0])] += 1
+            return done
+        node._install_snapshots = _install_snapshots
+
+    real_start = cluster.start_node
+
+    def start_node(i):
+        node = real_start(i)
+        hook(node)
+        return node
+    cluster.start_node = start_node
+    for n in cluster.nodes.values():
+        hook(n)
+    return out
+
+
 def quiesce(cluster, timeout: float = 60.0) -> None:
     """Wait until no node of ``cluster`` has a snapshot download or a
     checkpoint in flight."""
@@ -166,6 +238,9 @@ class Lockstep:
         self.rounds = 0
         self.fetched = [_record_fetches(c) for c in self.clusters] \
             if lanes else None
+        # Per round, per cluster: leaves the port nodes' steps copied into
+        # their static state (None for the reference's nodes).
+        self.copied: List[list] = []
 
     @property
     def lead(self):
@@ -202,10 +277,13 @@ class Lockstep:
 
     def tick(self, rounds: int = 1) -> None:
         for _ in range(rounds):
+            before = [_copy_counts(c) for c in self.clusters]
             for c in self.clusters:
                 c.tick()
                 if self.fetched is not None:
                     quiesce(c)
+            self.copied.append([_copied_since(c, b) for c, b
+                                in zip(self.clusters, before)])
             self.rounds += 1
             self.check()
             if self.fetched is not None:
@@ -312,3 +390,157 @@ def run_script(clusters: Sequence, n_submit: int = 2,
             f"machine files differ in cluster {k}: (node, group) {diff[:4]}"
     return {"rounds": ls.rounds, "victim": victim, "acked": acked,
             "files": files[0]}
+
+
+def file_payloads(data: bytes) -> List[bytes]:
+    """The payloads of a machine file's ``index:payload`` lines."""
+    return [ln.split(b":", 1)[1] for ln in data.splitlines()]
+
+
+def _files_agree(files: Dict[tuple, bytes], G: int, what: str) -> None:
+    """Every group's machine file byte-equal on every node of one
+    cluster."""
+    nodes = sorted({i for i, _ in files})
+    bad = [g for g in range(G)
+           if len({files[(i, g)] for i in nodes}) != 1]
+    assert not bad, f"{what}: machine files differ across nodes in " \
+        f"group(s) {bad[:8]}"
+
+
+def run_lifecycle_script(clusters: Sequence, lanes: bool = False,
+                         closed: Sequence[Sequence[int]] = ((3,), (6,)),
+                         purged: Sequence[Sequence[int]] = ((5,), (2,)),
+                         n_submit: int = 2, max_rounds: int = 400,
+                         max_loads: int = 120,
+                         drain_rounds: int = 10) -> dict:
+    """The snapshot plane and the group lifecycle in lockstep (see the
+    module docstring).  ``closed[k]`` / ``purged[k]``: the lanes closed
+    and reopened / purged and reused in lifecycle round k (round 0 before
+    the install, round 1 after it).  Returns ``{"rounds", "victim",
+    "acked", "files", "installs", "installed", "fetched", "loads",
+    "writes", "copied"}``, each list holding one entry per cluster:
+    ``files`` its machine files, ``installs`` the victim's [G] installs,
+    ``installed`` its ``snapshots_installed`` metric, ``fetched`` the
+    downloads its tick was handed; ``writes`` the rounds that follow a
+    lifecycle write, ``copied`` the leaves copied on those rounds (None
+    for the reference's nodes).  Raises AssertionError where the
+    clusters differ, a phase does not finish, a group of the victim
+    caught up without an install, a download was not installed, a purged
+    lane kept its history or a closed one lost it, machine files differ
+    across nodes or clusters, or a port node copied a leaf on a round
+    that followed no lifecycle write (or none on one that did)."""
+    ls = Lockstep(clusters, lanes=lanes)
+    G = ls.lead.cfg.n_groups
+    writes: List[int] = []
+
+    def set_lanes(lanes_, active, purge=False):
+        for c in ls.clusters:
+            for n in c.nodes.values():
+                for g in lanes_:
+                    n.set_active(g, active, purge=purge)
+        if ls.rounds + 1 not in writes:
+            writes.append(ls.rounds + 1)
+
+    def cycle(k):
+        shut, wipe = list(closed[k]), list(purged[k])
+        old = machine_bytes(ls.lead)
+        set_lanes(shut, False)
+        set_lanes(wipe, False, purge=True)
+        ls.tick(4)
+        set_lanes(shut + wipe, True)
+        ls.tick_until(ls.all_led_ready, max_rounds,
+                      f"lifecycle round {k}: reopened lanes led and ready")
+        got = ls.submit_all(f"l{k}-", n_submit)
+        ls.tick(drain_rounds)
+        new = machine_bytes(ls.lead)
+        for (i, g), data in new.items():
+            had = set(file_payloads(old[(i, g)])) - {b""}
+            now = set(file_payloads(data))
+            if g in wipe:
+                assert had and not had & now and data, \
+                    f"purged lane {g} on node {i} kept its history " \
+                    f"or served nothing after its reuse"
+            elif g in shut:
+                assert had <= now and data.startswith(old[(i, g)]), \
+                    f"closed lane {g} on node {i} lost its history"
+        return got
+
+    ls.check()
+    ls.tick_until(ls.all_led_ready, max_rounds, "every group led and ready")
+    acked = ls.submit_all("a", n_submit)
+    ls.tick(drain_rounds)
+    acked += cycle(0)
+
+    # The node leading the fewest groups dies; the survivors load and
+    # compact until their WAL floor has passed its log tail everywhere.
+    lead = ls.leaders()
+    victim = int(np.argmin(np.bincount(lead, minlength=len(ls.lead.nodes))))
+    vnode = ls.lead.nodes[victim]
+    tail = np.maximum(_numpy(vnode.state.log.last).astype(np.int64),
+                      [vnode.store.tail(g) for g in range(G)])
+    ls.each(lambda c: c.kill_node(victim))
+    ls.tick_until(ls.all_led_ready, max_rounds,
+                  "every group re-led and ready among survivors")
+    loads = 0
+    while not all((n.h_base.astype(np.int64) > tail).all()
+                  for n in ls.lead.nodes.values()):
+        acked += ls.submit_all(f"d{loads}-", n_submit)
+        loads += 1
+        behind = [i for i, n in ls.lead.nodes.items()
+                  if (n.h_base <= tail).any()]
+        assert loads <= max_loads, \
+            f"the compaction floor never passed the victim's tail on " \
+            f"node(s) {behind}"
+    installs = [record_installs(c) for c in ls.clusters]
+    ls.each(lambda c: c.restart_node(victim))
+
+    def caught_up() -> bool:
+        nodes = ls.lead.nodes
+        top = np.max([n.h_commit for i, n in nodes.items() if i != victim],
+                     axis=0)
+        return bool((nodes[victim].h_commit >= top).all())
+    ls.tick_until(caught_up, max_rounds, "the restarted node caught up")
+    per_group = [rec[victim]["groups"].copy() for rec in installs]
+    fetched = [rec[victim]["fetched"] for rec in installs]
+    installed = [int(c.nodes[victim].metrics["snapshots_installed"])
+                 for c in ls.clusters]
+    for k, (grp, rec) in enumerate(zip(per_group, installs)):
+        rec = rec[victim]
+        lag = np.nonzero(grp == 0)[0]
+        assert lag.size == 0, \
+            f"cluster {k}: node {victim} caught up without an install in " \
+            f"{lag.size} group(s), first {lag[:8].tolist()}"
+        assert rec["failed"] == 0 and \
+            rec["fetched"] == int(grp.sum()) + rec["stale"], \
+            f"cluster {k}: {rec['fetched']} downloads handed to the " \
+            f"tick, {int(grp.sum())} installed, {rec['stale']} stale, " \
+            f"{rec['failed']} failed"
+        assert np.array_equal(grp, per_group[0]), \
+            f"cluster {k}: installs per group differ from cluster 0's"
+    ls.tick_until(ls.all_led_ready, max_rounds, "every group led and ready")
+    acked += ls.submit_all("z", n_submit)
+    acked += cycle(1)
+
+    files = [machine_bytes(c) for c in ls.clusters]
+    for k, f in enumerate(files):
+        _files_agree(f, G, f"cluster {k}")
+        diff = [key for key in f if f[key] != files[0].get(key)]
+        assert not diff, \
+            f"machine files differ in cluster {k}: (node, group) {diff[:4]}"
+    copied = []
+    for k in range(len(ls.clusters)):
+        per_round = [row[k] for row in ls.copied]
+        if any(v is None for v in per_round):
+            copied.append(None)
+            continue
+        wrong = [r + 1 for r, v in enumerate(per_round)
+                 if (v > 0) != (r + 1 in writes)]
+        assert not wrong, \
+            f"cluster {k}: leaves copied into the static state on rounds " \
+            f"{[(r, per_round[r - 1]) for r in wrong[:6]]}; lifecycle " \
+            f"writes before rounds {writes}"
+        copied.append([per_round[r - 1] for r in writes])
+    return {"rounds": ls.rounds, "victim": victim, "acked": acked,
+            "files": files, "installs": per_group, "installed": installed,
+            "fetched": fetched, "loads": loads, "writes": writes,
+            "copied": copied}

@@ -38,7 +38,7 @@ from rafting_tpu.core.types import EngineConfig as JaxEngineConfig
 from rafting_tpu.log.store import LogStore as JaxLogStore
 from rafting_tpu.log.store import restore_raft_state as jax_restore
 from rafting_tpu.testkit.harness import LocalCluster as JaxLocalCluster
-from rafting_tpu_torch import EngineConfig, LocalCluster, RaftNode
+from rafting_tpu_torch import LEADER, EngineConfig, LocalCluster, RaftNode
 from rafting_tpu_torch.api import anomaly as port_anomaly
 from rafting_tpu_torch.api.anomaly import BatchAbortedError, NotLeaderError
 from rafting_tpu_torch.bridge import state_to_numpy
@@ -415,6 +415,52 @@ def test_a_paced_node_counts_admission_ticks_at_its_interval(
         lc.close()
 
 
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_a_pipelined_leader_waits_out_its_followers_reply(
+        tmp_path, monkeypatch, pkg, pipeline):
+    """A container's timing gives the engine the 3-tick RPC deadline of a
+    lockstep round trip.  A pipelined follower sends its reply a tick
+    after the tick that handled the request (behind its fsync), so with
+    its followers ticking at half the leader's rate (ticks of twice the
+    interval, as a collector pause or a slow host phase makes them) the
+    reply reaches the leader at its fourth tick after the send: the
+    reference's pipelined leader times out both peers and loses its
+    healthy majority.  Serial followers reply within the deadline, and the
+    port's pipelined node waits one tick longer."""
+    for k, v in PINNED_ENV.items():
+        monkeypatch.setenv(k, v)
+    kw = dict(CFG_KW, n_groups=4, rpc_timeout_ticks=3)
+    lc = JaxLocalCluster(JaxEngineConfig(**kw), str(tmp_path),
+                         pipeline=pipeline) \
+        if pkg == "jax" else _cluster(tmp_path, EngineConfig(**kw),
+                                      pipeline=pipeline)
+    if pkg == "jax":
+        # The port collapses any standing inbox backlog (a fault of the
+        # reference's inbox fixed in the port only); with it, the two
+        # packages differ here only in the deadline.
+        for n in lc.nodes.values():
+            n.acc.COLLAPSE_BACKLOG = 1
+    try:
+        lc.tick_until(lambda: all(
+            (lead := lc.leader_of(g)) is not None
+            and bool(lc.nodes[lead].h_ready[g]) for g in range(4)), 300,
+            "every group led and ready")
+        leader = lc.leader_of(0)
+        node = lc.nodes[leader]
+        led = np.nonzero(node.h_role == LEADER)[0]
+        lost = 0
+        for step in range(48):
+            for i, n in lc.nodes.items():
+                if i == leader or step % 2 == 0:
+                    n.tick()
+            lost += int((~node.h_ready[led]).sum())
+        slow = pkg == "jax" and pipeline
+        assert (lost > 0) == slow, (pkg, pipeline, lost)
+    finally:
+        lc.close()
+
+
 # ---------------------------------------------------------- WAL interchange --
 
 def _write_wal(kind, root):
@@ -486,7 +532,7 @@ def test_wal_interchange(tmp_path, writer):
 
 # Modules the port copies from the reference byte for byte.
 COPIES = [
-    "utils/__init__.py", "utils/crc32c.py", "utils/iofault.py",
+    "utils/__init__.py", "utils/iofault.py",
     "utils/metrics.py", "utils/latency.py", "utils/health.py",
     "utils/heat.py", "api/anomaly.py", "api/serial.py",
     "transport/__init__.py", "transport/faults.py", "transport/inbox.py",
@@ -516,6 +562,8 @@ COPIES = [
 # serves the TCP transport's forwards, instead of a thread per operation
 # at each end; closing a transport closes its reactor.
 EDITED = {"utils/tracelog.py": ["trace_to_numpy"],
+          # The same values, the whole 64-byte lanes advanced by numpy.
+          "utils/crc32c.py": ["crc32c", "_lanes"],
           "transport/codec.py": ["messages_template"],
           "api/stub.py": ["RaftStub._forwarded"],
           # Restores one node's state as torch tensors on ``device``.
@@ -534,14 +582,19 @@ EDITED = {"utils/tracelog.py": ["trace_to_numpy"],
           # at [G] lanes as the reference's.  The port also collapses any
           # standing inbox backlog, keeps an in-flight tick's offers
           # queued under admission shedding and feeds admission a paced
-          # tick's interval (faults of the reference).
+          # tick's interval (faults of the reference).  It gives each
+          # snapshot download a file of its own (the reference's shared
+          # name lets a newer download rewrite a file being installed) and
+          # makes a tick's installs durable with one barrier, not one each;
+          # a pipelined node's RPC deadline is at least 4 ticks.
           "runtime/node.py": [
               "_host_lane", "_fetch_trees", "_reset_lanes", "_TickCtx",
               "RaftNode.__init__", "RaftNode.close",
               "RaftNode.profile_ticks", "RaftNode.tick",
               "RaftNode._health_tick", "RaftNode._dispatch",
               "RaftNode._fetch", "RaftNode._persist_prepare",
-              "RaftNode.catch_up_gap", "RaftNode._purge_lanes"],
+              "RaftNode.catch_up_gap", "RaftNode._purge_lanes",
+              "RaftNode._download_snapshot", "RaftNode._install_snapshots"],
           # torch.profiler in place of jax.profiler, same entry points.
           "utils/profiling.py": [
               "__doc__", "_profile", "_export", "device_trace",
